@@ -8,7 +8,9 @@ imports neither JAX nor the JAX package.
 Ported so far: the serving path (``cli/render.py`` → ``ops/render.py`` →
 ``ops/preprocess.py`` → ``ops/rasterize.py`` stream path →
 ``ops/binning.py`` → ``ops/stream.py``), whose compositing kernel is the
-hand-written CUDA source ``csrc/stream_fwd.cu``.
+hand-written CUDA source ``csrc/stream_fwd.cu``; and single-device
+training in exact mode (``cli/train.py`` → ``train/loop.py`` →
+``train/step.py``), whose composite backward is ``csrc/stream_bwd.cu``.
 
 Geometry and compositing run in float32 throughout, so TF32 is switched off
 for matrix products and cuDNN convolutions as soon as the package is

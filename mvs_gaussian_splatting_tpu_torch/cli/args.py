@@ -1,5 +1,6 @@
 """Argparse wiring for the CLI drivers — the reference's flag surface
-(arguments/__init__.py:47-108) mapped onto the typed dataclass configs."""
+(arguments/__init__.py:47-108) mapped onto the typed dataclass configs. A
+boolean field that defaults to True also takes ``--no-<name>``."""
 
 from __future__ import annotations
 
@@ -27,12 +28,19 @@ def add_dataclass_args(parser: argparse.ArgumentParser, cls, prefix: str = "",
         if sentinel:
             default = None
         if f.type in ("bool", bool):
-            parser.add_argument(*flags, action="store_true",
+            # a flag that defaults on gets its --no- form (--no-fast_math)
+            action = (argparse.BooleanOptionalAction if f.default is True
+                      else "store_true")
+            parser.add_argument(*flags, action=action,
                                 default=None if sentinel else bool(default))
         elif f.type in ("List[int]", "list"):
             parser.add_argument(*flags, nargs="+", type=int,
                                 default=None if sentinel
                                 else list(f.default_factory()))
+        elif f.type in ("tuple", tuple):
+            # tier_budgets (ints) / tier_fracs (floats): the default's type
+            parser.add_argument(*flags, nargs="+", type=type(f.default[0]),
+                                default=None if sentinel else f.default)
         else:
             t = {"int": int, "float": float, "str": str}.get(
                 f.type if isinstance(f.type, str) else f.type.__name__, str)

@@ -2,7 +2,8 @@
 
 Port of the JAX package's ``data/cameras.py``: a Camera owns numpy
 matrices and, optionally, the ground-truth image; ``view(device)`` yields
-the float32 :class:`CameraView` the rasterizer takes. Pose-only cameras
+the float32 :class:`CameraView` the rasterizer takes, and
+``device_image(device)`` the image as a tensor. Pose-only cameras
 (``image=None``) render fine. :func:`camera_from_json` inverts
 :func:`camera_to_json`, so a model directory's ``cameras.json`` alone gives
 renderable poses.
@@ -46,6 +47,17 @@ class Camera:
         self.world_view = W2V.astype(np.float32)          # column-vector conv.
         self.full_proj = (P @ W2V).astype(np.float32)
         self.camera_center = np.linalg.inv(W2V)[:3, 3].astype(np.float32)
+        self._device_images = {}
+
+    def device_image(self, device="cuda") -> torch.Tensor:
+        """The ground-truth image [3, H, W] on ``device``, uploaded once."""
+        if self.image is None:
+            raise ValueError(f"camera {self.image_name} has no image")
+        key = str(device)
+        if key not in self._device_images:
+            self._device_images[key] = torch.as_tensor(self.image,
+                                                       device=device)
+        return self._device_images[key]
 
     def view(self, device="cuda") -> CameraView:
         def f32(a):

@@ -5,7 +5,8 @@ read_intrinsics_binary :215-241, read_points3D_binary :125-154 and the text
 fallbacks). Binary layouts follow the COLMAP on-disk format
 (src/base/reconstruction.cc): little-endian packed records. Points are parsed
 vectorized with numpy instead of per-record struct loops — MipNeRF-360 scenes
-have millions of track entries.
+have millions of track entries. :func:`write_pinhole_scene` writes a whole
+dataset the readers take back (synthetic scenes, the card's smoke test).
 """
 
 from __future__ import annotations
@@ -210,3 +211,39 @@ def write_points3d_binary(xyz: np.ndarray, rgb: np.ndarray, path: str) -> None:
             f.write(np.asarray(rgb[i], dtype="u1").tobytes())
             f.write(struct.pack("<d", 0.0))
             f.write(struct.pack("<Q", 0))
+
+
+def write_pinhole_scene(path: str, cameras, images, xyz: np.ndarray,
+                        rgb: np.ndarray) -> None:
+    """A COLMAP dataset that ``read_colmap_scene`` reads back: one PINHOLE
+    intrinsic and one pose per camera (``data.cameras.Camera``, its fovs and
+    R / T), ``images/<image_name>.png`` from ``images`` ([H, W, 3] uint8
+    arrays, one per camera), and the point cloud ``xyz`` / ``rgb`` (uint8)
+    as ``sparse/0/points3D.ply``."""
+    import os
+
+    from PIL import Image
+
+    from ..models.ply import store_point_cloud_ply
+    from ..utils.graphics import fov2focal
+
+    sparse = os.path.join(path, "sparse", "0")
+    os.makedirs(sparse, exist_ok=True)
+    os.makedirs(os.path.join(path, "images"), exist_ok=True)
+    intr, extr = {}, {}
+    for k, (cam, img) in enumerate(zip(cameras, images)):
+        h, w = img.shape[:2]
+        intr[k + 1] = CameraIntrinsics(
+            k + 1, "PINHOLE", w, h,
+            np.array([fov2focal(cam.fovx, w), fov2focal(cam.fovy, h),
+                      w / 2, h / 2]))
+        name = f"{cam.image_name}.png"
+        # R is the camera-to-world rotation (W2C transposed)
+        extr[k + 1] = ImageExtrinsics(k + 1, rotmat2qvec(np.asarray(cam.R).T),
+                                      np.asarray(cam.T, np.float64), k + 1,
+                                      name)
+        Image.fromarray(np.asarray(img, np.uint8)).save(
+            os.path.join(path, "images", name))
+    write_cameras_binary(intr, os.path.join(sparse, "cameras.bin"))
+    write_images_binary(extr, os.path.join(sparse, "images.bin"))
+    store_point_cloud_ply(os.path.join(sparse, "points3D.ply"), xyz, rgb)

@@ -1,8 +1,9 @@
 """Build and load the hand-written CUDA kernels of ``csrc/``.
 
-Every ``csrc/*.cu`` file is compiled by ``nvcc`` for ``sm_90a`` into one
-shared library with a plain C interface, ``build/torch_kernels/
-libgs_kernels.so`` under the repository root, and loaded with ``ctypes``.
+Every ``csrc/*.cu`` file is compiled by its own ``nvcc`` for ``sm_90a``
+(all in parallel) and linked into one shared library with a plain C
+interface, ``build/torch_kernels/libgs_kernels.so`` under the repository
+root, loaded with ``ctypes``.
 No PyTorch header is included, so the build takes seconds. It happens at
 the first call of :func:`library` (never at import: machines without a card
 import every module), and again whenever a source is newer than the
@@ -23,7 +24,8 @@ BUILD_DIR = Path(__file__).resolve().parent.parent / "build" / "torch_kernels"
 LIBRARY = BUILD_DIR / "libgs_kernels.so"
 BUILD_LOG = BUILD_DIR / "build.log"
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-              "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
+              "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
+LINK_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-shared"]
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
@@ -31,6 +33,8 @@ _I = ctypes.c_int
 # would pass them as 32-bit ints and cut them.
 _SIGNATURES = {
     "gs_stream_fwd": [_P, ctypes.c_longlong, _P, _P, _P, _P, _P, _P,
+                      _I, _I, _I, _I, _P],
+    "gs_stream_bwd": [_P, ctypes.c_longlong, _P, _P, _P, _P, _P, _P, _P, _P,
                       _I, _I, _I, _I, _P],
 }
 
@@ -50,19 +54,38 @@ def _nvcc() -> str:
 
 
 def build(force: bool = False) -> Path:
-    """Compile ``csrc/*.cu`` into :data:`LIBRARY` if it is missing or stale."""
+    """Compile ``csrc/*.cu`` into :data:`LIBRARY` if it is missing or stale:
+    one ``nvcc -c`` per source, all started together, then one link."""
     srcs = sorted(CSRC.glob("*.cu"))
     if (not force and LIBRARY.exists() and LIBRARY.stat().st_mtime
             >= max(s.stat().st_mtime for s in srcs)):
         return LIBRARY
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    tmp = LIBRARY.with_name(f"{LIBRARY.name}.{os.getpid()}.tmp")
-    cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), *map(str, srcs)]
-    proc = subprocess.run(cmd, capture_output=True, text=True)
-    BUILD_LOG.write_text(" ".join(cmd) + "\n" + proc.stdout + proc.stderr)
-    if proc.returncode != 0:
-        raise RuntimeError(f"nvcc failed ({proc.returncode}):\n"
-                           f"{proc.stdout}{proc.stderr}")
+    nvcc = _nvcc()
+    tag = f"{os.getpid()}.tmp"
+    objs = [BUILD_DIR / f"{src.stem}.{tag}.o" for src in srcs]
+    cmds = [[nvcc, *NVCC_FLAGS, "-c", "-o", str(obj), str(src)]
+            for src, obj in zip(srcs, objs)]
+    procs = [subprocess.Popen(cmd, stdout=subprocess.PIPE,
+                              stderr=subprocess.STDOUT, text=True)
+             for cmd in cmds]
+    outs = [proc.communicate()[0] for proc in procs]
+    log = "".join(" ".join(cmd) + "\n" + out for cmd, out in zip(cmds, outs))
+    failed = [(cmd[-1], proc.returncode, out)
+              for cmd, proc, out in zip(cmds, procs, outs) if proc.returncode]
+    tmp = LIBRARY.with_name(f"{LIBRARY.name}.{tag}")
+    if not failed:
+        link = [nvcc, *LINK_FLAGS, "-o", str(tmp), *map(str, objs)]
+        proc = subprocess.run(link, capture_output=True, text=True)
+        log += " ".join(link) + "\n" + proc.stdout + proc.stderr
+        if proc.returncode:
+            failed.append(("link", proc.returncode, proc.stdout + proc.stderr))
+    for obj in objs:
+        obj.unlink(missing_ok=True)
+    BUILD_LOG.write_text(log)
+    if failed:
+        raise RuntimeError("nvcc failed:\n" + "\n".join(
+            f"{what} ({rc}):\n{out}" for what, rc, out in failed))
     os.replace(tmp, LIBRARY)   # atomic: concurrent builders never see half
     return LIBRARY
 

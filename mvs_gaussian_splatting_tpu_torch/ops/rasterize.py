@@ -7,8 +7,8 @@ gather of a per-Gaussian table and one per-instance gather; the composite
 is :func:`ops.stream.composite_stream` (the CUDA kernel on a card, its plain
 version on the CPU).
 
-Not ported yet: the padded ``"jnp"`` and ``"pallas"`` backends, and the
-gather's backward (the training slice).
+Not ported yet: the padded ``"jnp"`` and ``"pallas"`` backends (B4/B5 in
+``ROADMAP.md``).
 """
 
 from __future__ import annotations
@@ -37,8 +37,8 @@ class RasterConfig(NamedTuple):
     # (nested prefixes, max_tiles_per_gaussian last). () = flat budget.
     tier_budgets: tuple = (4, 12)
     tier_fracs: tuple = (0.25, 0.1)
-    # Fast-math compositing is a training-time trade; the port composites
-    # in exact mode only so far.
+    # Fast-math compositing (B3) is a training-time trade; the port
+    # composites in exact mode only so far.
     fast_math: bool = False
     # Visible-prefix compaction: a static bound on the visible Gaussian
     # count. The order is truncated to it; dropped visible rows (the
@@ -59,12 +59,31 @@ def widen_eval_budgets(cfg: RasterConfig) -> RasterConfig:
     return cfg
 
 
-def _gather_inst_rows(table, inst_rank, inst_valid):
+class _GatherInstRows(torch.autograd.Function):
     """attrs[:, i] = table[inst_rank[i]] where valid, else 0: the packed
     stream [W, CAP + CHUNK], attribute-major. ``inst_rank`` is in range by
-    construction (binning zeroes invalid slots)."""
-    attrs = table.T.contiguous()[:, inst_rank]
-    return attrs.masked_fill_(~inst_valid[None, :], 0.0)
+    construction (binning zeroes invalid slots). The backward is one
+    scatter-add of the valid columns into the [N, W] table."""
+
+    @staticmethod
+    def forward(ctx, table, inst_rank, inst_valid):
+        idx = inst_rank.long()
+        ctx.save_for_backward(idx, inst_valid)
+        ctx.rows = table.shape[0]
+        attrs = table.T.contiguous()[:, idx]
+        return attrs.masked_fill_(~inst_valid[None, :], 0.0)
+
+    @staticmethod
+    def backward(ctx, g):
+        idx, inst_valid = ctx.saved_tensors
+        g_rows = g.masked_fill(~inst_valid[None, :], 0.0).T.contiguous()
+        table_grad = g.new_zeros((ctx.rows, g.shape[0]))
+        table_grad.index_add_(0, idx, g_rows)
+        return table_grad, None, None
+
+
+def _gather_inst_rows(table, inst_rank, inst_valid):
+    return _GatherInstRows.apply(table, inst_rank, inst_valid)
 
 
 def bin_and_pack_stream(processed: Processed, tiles_x: int, tiles_y: int,
@@ -151,7 +170,8 @@ def rasterize(processed: Processed, image_width: int, image_height: int,
         raise ValueError(f"backend {config.backend!r} is not ported; the "
                          "port has the stream backend only")
     if config.fast_math:
-        raise ValueError("fast_math compositing is not ported; use exact mode")
+        raise ValueError("fast_math compositing (B3 in ROADMAP.md) is not "
+                         "ported; composite in exact mode (--no-fast_math)")
     tile_w, tile_h = config.tile_w, config.tile_h
     tiles_x = -(-image_width // tile_w)
     tiles_y = -(-image_height // tile_h)

@@ -10,9 +10,11 @@ Binning lays all tile instances out in one packed attribute array
 
 :func:`composite_stream` launches the hand-written CUDA kernel
 ``csrc/stream_fwd.cu`` for CUDA tensors and runs
-:func:`composite_stream_plain` for CPU tensors. The eval surfaces composite
-in exact mode only; the fast-math mode and the backward kernel come with
-the training slice.
+:func:`composite_stream_plain` for CPU tensors. It is differentiable in
+``attrs`` and ``bg``: its backward is :func:`composite_stream_bwd`, which
+launches ``csrc/stream_bwd.cu`` for CUDA tensors and runs
+:func:`composite_stream_bwd_plain` for CPU tensors. Both composite in exact
+mode only; the fast-math mode (B3 in ``ROADMAP.md``) is not ported.
 """
 
 from __future__ import annotations
@@ -23,8 +25,10 @@ import torch
 ROWS = 16
 CHUNK = 128   # slack columns at the tail of the stream (JAX layout)
 
-# Kernel launches by composite_stream (the CPU path does not count).
+# Kernel launches: the forward by composite_stream, the backward by
+# composite_stream_bwd (the CPU path counts neither).
 launches = 0
+bwd_launches = 0
 
 
 def _check(attrs, seg_start, counts, bg, tile_ids, tile_w, tile_h):
@@ -51,11 +55,8 @@ def _check(attrs, seg_start, counts, bg, tile_ids, tile_w, tile_h):
                          "one thread per pixel, at most 1024 per tile")
 
 
-def composite_stream(attrs, seg_start, counts, bg, tile_ids, tiles_x: int,
-                     tile_w: int, tile_h: int):
-    """attrs [16, CAP+128] f32; seg_start/counts/tile_ids [T] i32 (tile_ids
-    is the GLOBAL tile id of each local tile: it places the pixel grid);
-    bg [3] f32 → (out [T, P, 3], final_T [T, P]), P = tile_w·tile_h."""
+def _composite_fwd(attrs, seg_start, counts, bg, tile_ids, tiles_x: int,
+                   tile_w: int, tile_h: int):
     global launches
     _check(attrs, seg_start, counts, bg, tile_ids, tile_w, tile_h)
     if attrs.device.type == "cpu":
@@ -82,6 +83,102 @@ def composite_stream(attrs, seg_start, counts, bg, tile_ids, tiles_x: int,
     return out, final_t
 
 
+class _StreamComposite(torch.autograd.Function):
+    """B1 forward, B2 backward; gradients flow to ``attrs`` and ``bg``."""
+
+    @staticmethod
+    def forward(ctx, attrs, seg_start, counts, bg, tile_ids, tiles_x, tile_w,
+                tile_h):
+        out, final_t = _composite_fwd(attrs, seg_start, counts, bg, tile_ids,
+                                      tiles_x, tile_w, tile_h)
+        ctx.geometry = (tiles_x, tile_w, tile_h)
+        ctx.save_for_backward(attrs, seg_start, counts, bg, tile_ids, out,
+                              final_t)
+        return out, final_t
+
+    @staticmethod
+    def backward(ctx, g_out, g_tfin):
+        attrs, seg_start, counts, bg, tile_ids, out, final_t = \
+            ctx.saved_tensors
+        gattrs, g_bg = composite_stream_bwd(
+            attrs, seg_start, counts, bg, tile_ids, *ctx.geometry, out,
+            final_t, g_out.contiguous(), g_tfin.contiguous())
+        return gattrs, None, None, g_bg, None, None, None, None
+
+
+def composite_stream(attrs, seg_start, counts, bg, tile_ids, tiles_x: int,
+                     tile_w: int, tile_h: int):
+    """attrs [16, CAP+128] f32; seg_start/counts/tile_ids [T] i32 (tile_ids
+    is the GLOBAL tile id of each local tile: it places the pixel grid);
+    bg [3] f32 → (out [T, P, 3], final_T [T, P]), P = tile_w·tile_h.
+    Differentiable in ``attrs`` and ``bg`` (see :func:`composite_stream_bwd`)."""
+    return _StreamComposite.apply(attrs, seg_start, counts, bg, tile_ids,
+                                  tiles_x, tile_w, tile_h)
+
+
+def _check_bwd(t, p, out, final_t, g_out, g_tfin):
+    dev = out.device
+    for name, a, shape in (("out", out, (t, p, 3)), ("final_t", final_t, (t, p)),
+                           ("g_out", g_out, (t, p, 3)),
+                           ("g_tfin", g_tfin, (t, p))):
+        if a.shape != shape or a.dtype != torch.float32:
+            raise ValueError(f"{name} must be float32 {list(shape)}, got "
+                             f"{a.dtype} {tuple(a.shape)}")
+        if a.device != dev or not a.is_contiguous():
+            raise ValueError(f"{name} must be contiguous on {dev}")
+
+
+def composite_stream_bwd(attrs, seg_start, counts, bg, tile_ids,
+                         tiles_x: int, tile_w: int, tile_h: int, out, final_t,
+                         g_out, g_tfin):
+    """Gradient of :func:`composite_stream`: the forward's inputs, its saved
+    outputs (out [T, P, 3], final_T [T, P]) and their cotangents →
+    (gattrs [16, CAP+128], g_bg [3]).
+
+    gattrs is zero outside this call's segments, in the entries a tile never
+    reaches before its early exit, and in rows 9..15. g_bg = Σ g_out·final_T
+    is one reduction outside the kernel, as in the JAX package."""
+    global bwd_launches
+    _check(attrs, seg_start, counts, bg, tile_ids, tile_w, tile_h)
+    t, p = seg_start.shape[0], tile_w * tile_h
+    _check_bwd(t, p, out, final_t, g_out, g_tfin)
+    if attrs.device.type == "cpu":
+        return composite_stream_bwd_plain(attrs, seg_start, counts, bg,
+                                          tile_ids, tiles_x, tile_w, tile_h,
+                                          out, final_t, g_out, g_tfin)
+    if attrs.device.type != "cuda":
+        raise ValueError(f"no stream kernel for device {attrs.device}")
+    if p % 32:
+        raise ValueError(f"tile_w*tile_h = {p}: the backward kernel reduces "
+                         "over whole warps, so it must be a multiple of 32")
+    from .. import kernels
+
+    gattrs = torch.zeros_like(attrs)
+    g_bg = torch.einsum("tpc,tp->c", g_out, final_t)
+    if t == 0:
+        return gattrs, g_bg
+    with torch.cuda.device(attrs.device):
+        err = kernels.library().gs_stream_bwd(
+            attrs.data_ptr(), attrs.shape[1], seg_start.data_ptr(),
+            counts.data_ptr(), tile_ids.data_ptr(), out.data_ptr(),
+            final_t.data_ptr(), g_out.data_ptr(), g_tfin.data_ptr(),
+            gattrs.data_ptr(), t, tiles_x, tile_w, tile_h,
+            torch.cuda.current_stream(attrs.device).cuda_stream)
+    if err != 0:
+        raise RuntimeError(f"gs_stream_bwd launch failed: CUDA error {err}")
+    bwd_launches += 1
+    return gattrs, g_bg
+
+
+def _pixel_grid(tile_ids, tiles_x: int, tile_w: int, tile_h: int):
+    """[T, P] float32 pixel coordinates of each tile's pixels."""
+    flat = torch.arange(tile_w * tile_h, device=tile_ids.device)
+    tid = tile_ids.long()
+    px = ((tid % tiles_x) * tile_w)[:, None] + (flat % tile_w)[None, :]
+    py = ((tid // tiles_x) * tile_h)[:, None] + (flat // tile_w)[None, :]
+    return px.to(torch.float32), py.to(torch.float32)
+
+
 def composite_stream_plain(attrs, seg_start, counts, bg, tile_ids,
                            tiles_x: int, tile_w: int, tile_h: int, *,
                            count_visits: bool = False):
@@ -96,11 +193,7 @@ def composite_stream_plain(attrs, seg_start, counts, bg, tile_ids,
     dev = attrs.device
     t, p = seg_start.shape[0], tile_w * tile_h
     f32 = torch.float32
-    flat = torch.arange(p, device=dev)
-    tid = tile_ids.long()
-    px = ((tid % tiles_x) * tile_w)[:, None] + (flat % tile_w)[None, :]
-    py = ((tid // tiles_x) * tile_h)[:, None] + (flat // tile_w)[None, :]
-    px, py = px.to(f32), py.to(f32)
+    px, py = _pixel_grid(tile_ids, tiles_x, tile_w, tile_h)
     max_alpha = torch.tensor(0.99, dtype=f32, device=dev)
     min_alpha = torch.tensor(1.0 / 255.0, dtype=f32, device=dev)
     min_trans = torch.tensor(1e-4, dtype=f32, device=dev)
@@ -137,6 +230,87 @@ def composite_stream_plain(attrs, seg_start, counts, bg, tile_ids,
     if count_visits:
         return out, trans, int(visits.amax(dim=1).sum()) * p if t else 0
     return out, trans
+
+
+def composite_stream_bwd_plain(attrs, seg_start, counts, bg, tile_ids,
+                               tiles_x: int, tile_w: int, tile_h: int, out,
+                               final_t, g_out, g_tfin, *,
+                               count_visits: bool = False):
+    """Plain PyTorch version of :func:`composite_stream_bwd`, same signature.
+
+    Replays the forward entry by entry, vectorised over tiles and pixels,
+    with the kernel's arithmetic in the kernel's order; only the sum over a
+    tile's pixels is taken in another order. ``count_visits=True`` also
+    returns the (entry, pixel) pairs visited, as
+    :func:`composite_stream_plain` counts them."""
+    dev = attrs.device
+    t = seg_start.shape[0]
+    f32 = torch.float32
+    px, py = _pixel_grid(tile_ids, tiles_x, tile_w, tile_h)
+    max_alpha = torch.tensor(0.99, dtype=f32, device=dev)
+    gr, gg, gb = g_out[..., 0], g_out[..., 1], g_out[..., 2]
+    g_dot_out = (gr * out[..., 0] + gg * out[..., 1]) + gb * out[..., 2]
+    tfin_term = g_tfin * final_t
+
+    width = attrs.shape[1]
+    start = seg_start.long()
+    cnt = torch.minimum(counts.long(), (width - start).clamp(min=0))
+    gattrs = torch.zeros_like(attrs)
+    trans = torch.ones_like(final_t)
+    prefix = torch.zeros_like(final_t)
+    done = torch.zeros(final_t.shape, dtype=torch.bool, device=dev)
+    visits = torch.zeros(final_t.shape, dtype=torch.int64, device=dev)
+    steps = int(cnt.max()) if t else 0
+    for k in range(steps):
+        in_seg = k < cnt                                        # [T]
+        live = in_seg[:, None] & ~done
+        if k % 32 == 0 and not bool(live.any()):
+            break
+        col = (start + k).clamp(max=width - 1)
+        a = attrs[:9, col]                                      # [9, T]
+        x, y, ca, cb, cc, op, r, gc, b = (a[i][:, None] for i in range(9))
+        dx = x - px
+        dy = y - py
+        power = -0.5 * (ca * dx * dx + cc * dy * dy) - cb * dx * dy
+        g = torch.exp(power)
+        raw = op * g
+        alpha = torch.minimum(raw, max_alpha)
+        contrib = live & (power <= 0.0) & (alpha >= 1.0 / 255.0)
+        one_minus = 1.0 - alpha
+        nxt = trans * one_minus
+        fail = contrib & (nxt < 1e-4)
+        include = contrib & ~fail
+        w = alpha * trans
+        g_dot_rgb = (gr * r + gg * gc) + gb * b
+        prefix = torch.where(include, prefix + w * g_dot_rgb, prefix)
+        dalpha = ((g_dot_rgb * trans - (g_dot_out - prefix) / one_minus)
+                  - tfin_term / one_minus)
+        slope = include & (raw < 0.99)
+        dpower = torch.where(slope, dalpha * op * g, 0.0)
+        rows = torch.stack([
+            dpower * -(ca * dx + cb * dy),
+            dpower * -(cc * dy + cb * dx),
+            dpower * (-0.5 * dx * dx),
+            dpower * (-dx * dy),
+            dpower * (-0.5 * dy * dy),
+            torch.where(slope, dalpha * g, 0.0),
+            torch.where(include, gr * w, 0.0),
+            torch.where(include, gg * w, 0.0),
+            torch.where(include, gb * w, 0.0),
+        ])                                                      # [9, T, P]
+        sums = rows.sum(-1)                                     # [9, T]
+        # a segment's columns are written while any of its pixels is live,
+        # as the kernel writes every entry of a batch it runs
+        seg_live = in_seg & live.any(1)
+        gattrs[:9, col[seg_live]] = sums[:, seg_live]
+        trans = torch.where(include, nxt, trans)
+        done = done | fail
+        visits += live
+    g_bg = torch.einsum("tpc,tp->c", g_out, final_t)
+    if count_visits:
+        p = tile_w * tile_h
+        return gattrs, g_bg, int(visits.amax(dim=1).sum()) * p if t else 0
+    return gattrs, g_bg
 
 
 def random_stream(seed: int, tiles_x: int = 12, tiles_y: int = 8,

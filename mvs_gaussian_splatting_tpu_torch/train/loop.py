@@ -1,13 +1,40 @@
-"""Training-loop helpers that the eval surfaces share.
+"""The training driver, single device.
 
-Port of ``raster_config_from_pipe`` and ``eval_config`` from the JAX
-package's ``train/loop.py``; the loop itself comes with the training slice.
+Port of the JAX package's ``train/loop.py``: host-side orchestration around
+the train step: camera sampling, SH warm-up, learning-rate schedule,
+densify / prune / opacity-reset cadence, capacity growth, the render-slice
+and instance-cap buckets, eval sweeps, the divergence guard, checkpoints.
+
+Not ported: the fast-math composite (B3), the multi-device modes
+(``data_parallel`` / ``tile_parallel`` / ``gauss_parallel`` and their grid,
+A17), grow mode (A12) and the network viewer (A14). Each raises.
 """
 
 from __future__ import annotations
 
+import json
+import math
+import os
+import random
+import time
+from typing import Callable, Optional
+
+import numpy as np
+import torch
+
+from ..data.scene import Scene
+from ..models.densify import DensifyConfig, densify_and_prune, reset_opacity
+from ..models.gaussians import (GaussianParams, compact, compact_state,
+                                init_from_pcd, num_alive, pad_capacity)
 from ..ops.rasterize import RasterConfig, widen_eval_budgets
-from .config import PipelineConfig
+from ..utils.system import seed_everything
+from .checkpoint import load_checkpoint, save_checkpoint
+from .config import (ModelConfig, OptimizationConfig, PipelineConfig,
+                     TrainRunConfig, save_cfg_args)
+from .optim import AdamState, adam_init
+from .step import make_eval_metrics, make_eval_render, make_train_step
+
+PROFILE_WINDOW = (100, 120)
 
 
 def raster_config_from_pipe(pipe: PipelineConfig) -> RasterConfig:
@@ -26,3 +53,492 @@ def eval_config(raster_cfg: RasterConfig) -> RasterConfig:
     or reported metrics composites in EXACT mode with the generous
     full-footprint tile budgets (ops.rasterize.widen_eval_budgets)."""
     return widen_eval_budgets(raster_cfg._replace(fast_math=False))
+
+
+def adaptive_eval_layout(params, aux, cameras, eval_cfg: RasterConfig,
+                         n_rows: int):
+    """((d, budgets, fracs), instance_cap) for a clip-free in-loop eval:
+    the tier layout sized from the measured per-Gaussian tile needs over
+    the eval cameras, as cli/render's offline chain sizes it, so the
+    loop's PSNR and the offline render's agree on the same model."""
+    from ..cli.render import measure_tile_needs
+    from ..ops.binning import adaptive_tier_layout, stream_instance_bound
+    p = GaussianParams(*[None if a is None else a[:n_rows] for a in params])
+    needs = measure_tile_needs(p, cameras, eval_cfg.tile_w, eval_cfg.tile_h)
+    # dead slots never render: their projected rects must not inflate it
+    needs = np.where(aux.alive[:n_rows].cpu().numpy(), needs, 0)
+    d, budgets, fracs, n_clipped = adaptive_tier_layout(
+        needs, eval_cfg.max_tiles_per_gaussian, eval_cfg.tier_budgets,
+        eval_cfg.tier_fracs, quantize=True)
+    if n_clipped:
+        print(f"WARNING: eval adaptive budgets hit the slot limit — "
+              f"{n_clipped} Gaussians render clipped")
+    bound = stream_instance_bound(n_rows, d, budgets, fracs)
+    return (d, tuple(budgets), tuple(fracs)), bound + (-bound) % 128
+
+
+def _refuse_unported(model_cfg: ModelConfig, pipe_cfg: PipelineConfig,
+                     run_cfg: TrainRunConfig) -> None:
+    if pipe_cfg.fast_math:
+        raise ValueError(
+            "fast_math training composites through the fast-math kernels "
+            "(B3 in ROADMAP.md), which are not ported yet; train in exact "
+            "mode with --no-fast_math (PipelineConfig(fast_math=False))")
+    for flag in ("data_parallel", "tile_parallel", "gauss_parallel"):
+        if getattr(run_cfg, flag):
+            raise NotImplementedError(f"{flag} training is not ported "
+                                      "(ROADMAP A17)")
+    if any(model_cfg.extras().values()):
+        raise NotImplementedError("grow-mode training (grow_dir, "
+                                  "continous_dir, grow_distance, learned "
+                                  "split) is not ported (ROADMAP A12)")
+
+
+def train(model_cfg: ModelConfig, opt_cfg: OptimizationConfig,
+          pipe_cfg: PipelineConfig, run_cfg: TrainRunConfig,
+          scene: Optional[Scene] = None,
+          log_fn: Callable[[str], None] = print, device="cuda",
+          profile_dir: str = ""):
+    """Run the optimization on ``device``. Returns (params, aux, scene,
+    history); ``history`` is also written to ``<model_path>/history.json``.
+    ``profile_dir``: write a torch.profiler trace of this run's iterations
+    100-120 (counted from the checkpoint's iteration on a resume) there as
+    ``trace.json``."""
+    _refuse_unported(model_cfg, pipe_cfg, run_cfg)
+    device = torch.device(device)
+    seed_everything(run_cfg.seed)
+    if scene is None:
+        scene = Scene(model_cfg)
+    if model_cfg.model_path:
+        save_cfg_args(model_cfg.model_path, model_cfg)
+
+    raster_cfg = raster_config_from_pipe(pipe_cfg)
+    spatial_lr_scale = float(scene.cameras_extent)
+
+    first_iter = 0
+    active_sh = 0
+    if run_cfg.start_checkpoint:
+        params, adam, aux, first_iter, active_sh = load_checkpoint(
+            run_cfg.start_checkpoint, device)
+        # checkpoints taken mid-training may have alive holes: compact so
+        # the render prefix-slice below is valid
+        params, mu, nu, aux = compact_state(params, adam.mu, adam.nu, aux)
+        adam = adam._replace(mu=mu, nu=nu)
+        log_fn(f"resumed from {run_cfg.start_checkpoint} at iter {first_iter}")
+    else:
+        n0 = len(scene.info.points)
+        capacity = max(1024, int(n0 * opt_cfg.initial_capacity_factor))
+        capacity = 1 << math.ceil(math.log2(capacity))
+        params, aux = init_from_pcd(scene.info.points, scene.info.colors,
+                                    capacity, sh_degree=model_cfg.sh_degree,
+                                    device=device)
+        adam = adam_init(params)
+        log_fn(f"Number of points at initialisation : {n0} "
+               f"(capacity {capacity})")
+
+    train_step = make_train_step(opt_cfg, raster_cfg, spatial_lr_scale)
+    eval_cfg = eval_config(raster_cfg)
+    eval_render = make_eval_render(eval_cfg)
+    eval_metrics = make_eval_metrics(eval_cfg)
+    render_n = _render_bucket(int(num_alive(aux)), params.xyz.shape[0])
+    # measured-load instance-cap bucket: 0 = the a-priori auto heuristic;
+    # re-bucketed from metrics.instance_load at every densify round, grown
+    # at once on an overflow signal
+    inst_cap = 0
+    # visible-prefix compaction bucket, grown at once on overflow_visible
+    use_vis = pipe_cfg.visible_compaction
+    vis_cap = 0
+    vis_max = 0
+
+    densify_cfg = DensifyConfig(
+        grad_threshold=opt_cfg.densify_grad_threshold,
+        min_opacity=opt_cfg.min_opacity,
+        percent_dense=opt_cfg.percent_dense,
+        symmetric_split=model_cfg.symmetric_split)
+    bg = (torch.ones(3, device=device) if model_cfg.white_background
+          else torch.zeros(3, device=device))
+    gen = torch.Generator(device=device)
+    gen.manual_seed(run_cfg.seed + 1)
+
+    tb_writer = _make_tb_writer(model_cfg.model_path)
+    viewpoint_stack: list = []
+    history = {"loss": [], "psnr_test": {}, "n_alive": {}, "iter_time": []}
+    best_test_psnr = -1.0
+    diverged_evals = 0
+    ema_loss = 0.0
+    loss = float("nan")
+    t_last = time.perf_counter()
+    progress = _make_progress(first_iter, opt_cfg.iterations)
+    profiler = None
+
+    for iteration in range(first_iter + 1, opt_cfg.iterations + 1):
+        if profile_dir and iteration == first_iter + PROFILE_WINDOW[0]:
+            profiler = _start_profiler(device)
+        if (profiler is not None
+                and iteration == first_iter + PROFILE_WINDOW[1]):
+            _stop_profiler(profiler, profile_dir)
+            profiler = None
+            log_fn(f"[ITER {iteration}] profiler trace written to "
+                   f"{profile_dir}")
+        if iteration % 1000 == 0 and active_sh < model_cfg.sh_degree:
+            active_sh += 1
+
+        if not viewpoint_stack:
+            viewpoint_stack = scene.get_train_cameras().copy()
+        cam = viewpoint_stack.pop(random.randint(0, len(viewpoint_stack) - 1))
+        bg_it = (torch.rand(3, generator=gen, device=device)
+                 if opt_cfg.random_background else bg)
+        do_stats = iteration < opt_cfg.densify_until_iter
+        params, adam, aux, metrics = train_step(
+            params, adam, aux, cam.view(device), cam.device_image(device),
+            bg_it, iteration, do_stats, width=cam.image.shape[2],
+            height=cam.image.shape[1], sh_degree=active_sh,
+            render_n=render_n, instance_cap=inst_cap, visible_cap=vis_cap)
+
+        eval_now = (iteration in run_cfg.test_iterations
+                    or (run_cfg.eval_every
+                        and iteration % run_cfg.eval_every == 0))
+        # the report evaluates the pre-densify state (densify writes in
+        # place, so keep a copy at eval iterations only)
+        eval_state = ((_clone(params), _clone(aux), render_n) if eval_now
+                      else None)
+
+        # ---- densification schedule --------------------------------------
+        if iteration < opt_cfg.densify_until_iter:
+            if (iteration > opt_cfg.densify_from_iter
+                    and iteration % opt_cfg.densification_interval == 0):
+                n_al = int(num_alive(aux))
+                capacity = params.xyz.shape[0]
+                if n_al > 0.7 * capacity and capacity < opt_cfg.max_capacity:
+                    new_cap = min(int(capacity
+                                      * opt_cfg.capacity_growth_factor),
+                                  opt_cfg.max_capacity)
+                    log_fn(f"[ITER {iteration}] capacity {capacity} → "
+                           f"{new_cap}")
+                    params, aux = pad_capacity(params, aux, new_cap)
+                    adam = AdamState(count=adam.count,
+                                     mu=_pad_tree(adam.mu, new_cap),
+                                     nu=_pad_tree(adam.nu, new_cap))
+                gate = iteration > opt_cfg.opacity_reset_interval
+                params, mu, nu, aux, info = densify_and_prune(
+                    params, adam.mu, adam.nu, aux, gen,
+                    scene.cameras_extent, densify_cfg, gate)
+                if info["n_dropped"] > 0:
+                    log_fn(f"[ITER {iteration}] WARNING: {info['n_dropped']} "
+                           "densification slots dropped (capacity starved)")
+                if iteration % 500 == 0:
+                    log_fn(f"[ITER {iteration}] densify: "
+                           f"+{info['n_cloned']} clone "
+                           f"+{info['n_split']} split "
+                           f"-{info['n_pruned']} prune "
+                           f"→ {info['n_alive']} alive")
+                history.setdefault("densify", []).append(
+                    dict(info, iteration=iteration))
+                # keep alive slots a prefix so the render slice stays
+                # valid, then re-bucket the render length
+                params, mu, nu, aux = compact_state(params, mu, nu, aux)
+                adam = adam._replace(mu=mu, nu=nu)
+                new_rn = _render_bucket(int(num_alive(aux)),
+                                        params.xyz.shape[0])
+                if new_rn != render_n:
+                    log_fn(f"[ITER {iteration}] render slice "
+                           f"{render_n} → {new_rn}")
+                    render_n = new_rn
+                new_ic = _instance_bucket(int(metrics.instance_load),
+                                          render_n or params.xyz.shape[0],
+                                          raster_cfg)
+                if new_ic != inst_cap:
+                    log_fn(f"[ITER {iteration}] instance cap "
+                           f"{inst_cap or 'auto'} → {new_ic or 'auto'}")
+                    inst_cap = new_ic
+                if use_vis and vis_max > 0:
+                    new_vc = _render_bucket(vis_max,
+                                            render_n or params.xyz.shape[0],
+                                            margin=1.3)
+                    if new_vc != vis_cap:
+                        log_fn(f"[ITER {iteration}] visible cap "
+                               f"{vis_cap or 'off'} → {new_vc or 'off'}")
+                        vis_cap = new_vc
+                    vis_max = 0
+            if (iteration % opt_cfg.opacity_reset_interval == 0
+                    or (model_cfg.white_background
+                        and iteration == opt_cfg.densify_from_iter)):
+                params, mu, nu = reset_opacity(params, adam.mu, adam.nu)
+                adam = adam._replace(mu=mu, nu=nu)
+
+        # ---- logging / eval / save ---------------------------------------
+        # The loss is read only at log points: each read waits for the card.
+        if iteration % 10 == 0 or iteration % run_cfg.log_every == 0:
+            loss, oc_now, il_now, nf_now, mv_now, ov_now = (
+                float(v) for v in (metrics.loss, metrics.overflow_capacity,
+                                   metrics.instance_load,
+                                   metrics.nonfinite_grad_rows,
+                                   metrics.mask_visible,
+                                   metrics.overflow_visible))
+            if use_vis:
+                vis_max = max(vis_max, int(mv_now))
+                if ov_now > 0:
+                    new_vc = _render_bucket(int(mv_now),
+                                            render_n or params.xyz.shape[0],
+                                            margin=1.3)
+                    if new_vc != vis_cap:
+                        log_fn(f"[ITER {iteration}] visible cap overflow "
+                               f"({int(ov_now)} rows) → {new_vc or 'off'}")
+                        vis_cap = new_vc
+            ema_loss = 0.4 * loss + 0.6 * ema_loss
+            history.setdefault("nonfinite_grad_rows", []).append(
+                (iteration, int(nf_now)))
+            if nf_now > 0:
+                log_fn(f"[ITER {iteration}] WARNING: {int(nf_now)} rows had "
+                       "non-finite gradients (zeroed by scrub_grads)")
+            if oc_now > 0:
+                # cap too tight: grow to the bucket covering the spilled load
+                grown = _instance_bucket(int(il_now + oc_now),
+                                         render_n or params.xyz.shape[0],
+                                         raster_cfg)
+                if grown != inst_cap:
+                    inst_cap = grown
+                    log_fn(f"[ITER {iteration}] instance cap overflow "
+                           f"({int(oc_now)} entries) → {inst_cap}")
+        if progress is not None and iteration % 10 == 0:
+            progress.set_postfix({"Loss": f"{ema_loss:.7f}",
+                                  "pts": int(num_alive(aux))})
+            progress.update(10)
+        if iteration % run_cfg.log_every == 0:
+            now = time.perf_counter()
+            it_s = run_cfg.log_every / (now - t_last)
+            t_last = now
+            history["loss"].append((iteration, loss))
+            history["iter_time"].append((iteration, it_s))
+            if tb_writer is not None:
+                tb_writer.add_scalar("train_loss_patches/l1_loss",
+                                     float(metrics.l1), iteration)
+                tb_writer.add_scalar("train_loss_patches/total_loss", loss,
+                                     iteration)
+                tb_writer.add_scalar("iter_time", 1000.0 / it_s, iteration)
+        if iteration % 500 == 0:
+            log_fn(f"[ITER {iteration}] loss {ema_loss:.5f} "
+                   f"alive {int(num_alive(aux))} "
+                   f"({history['iter_time'][-1][1]:.1f} it/s)"
+                   if history["iter_time"] else f"[ITER {iteration}]")
+
+        if eval_now:
+            _report(iteration, eval_state, scene, eval_cfg, eval_metrics,
+                    eval_render, bg, active_sh, history, tb_writer,
+                    model_cfg, log_fn, device)
+            ps_now = history["psnr_test"].get(iteration)
+            # divergence guard: an unattended run stops and checkpoints
+            # instead of training on garbage
+            if run_cfg.divergence_psnr_drop > 0 and ps_now is not None:
+                if ps_now > best_test_psnr:
+                    best_test_psnr = ps_now
+                    diverged_evals = 0
+                elif ps_now < best_test_psnr - run_cfg.divergence_psnr_drop:
+                    diverged_evals += 1
+                    log_fn(f"[ITER {iteration}] divergence warning "
+                           f"{diverged_evals}/{run_cfg.divergence_patience}: "
+                           f"test PSNR {ps_now:.2f} vs best "
+                           f"{best_test_psnr:.2f}")
+                    if diverged_evals >= run_cfg.divergence_patience:
+                        if model_cfg.model_path:
+                            save_checkpoint(
+                                f"{model_cfg.model_path}/chkpnt{iteration}"
+                                ".npz", params, adam, aux, iteration,
+                                active_sh)
+                        log_fn(f"[ITER {iteration}] ABORTING: test PSNR "
+                               f"{run_cfg.divergence_patience} evals "
+                               f">{run_cfg.divergence_psnr_drop} dB below "
+                               f"best {best_test_psnr:.2f} — checkpoint "
+                               "saved")
+                        history["aborted"] = iteration
+                        _write_history(model_cfg.model_path, history)
+                        return params, aux, scene, history
+                else:
+                    diverged_evals = 0
+
+        if iteration in run_cfg.save_iterations and model_cfg.model_path:
+            log_fn(f"[ITER {iteration}] Saving Gaussians")
+            scene.save(iteration, compact(params, aux))
+        if (iteration in run_cfg.checkpoint_iterations
+                and model_cfg.model_path):
+            log_fn(f"[ITER {iteration}] Saving Checkpoint")
+            save_checkpoint(f"{model_cfg.model_path}/chkpnt{iteration}.npz",
+                            params, adam, aux, iteration, active_sh)
+
+    if profiler is not None:
+        _stop_profiler(profiler, profile_dir)
+    if progress is not None:
+        progress.close()
+    _write_history(model_cfg.model_path, history)
+    return params, aux, scene, history
+
+
+def _report(iteration, eval_state, scene, eval_cfg, eval_metrics,
+            eval_render, bg, active_sh, history, tb_writer, model_cfg,
+            log_fn, device) -> None:
+    """The training report: L1 and PSNR over the full test set and 5 fixed
+    train views, each split on its own clip-free layout; shape
+    diagnostics; the side-by-side validation image."""
+    e_params, e_aux, e_rn = eval_state
+    train_all = scene.get_train_cameras()
+    configs = [("test", scene.get_test_cameras()),
+               ("train", [train_all[idx % len(train_all)]
+                          for idx in range(5, 30, 5)] if train_all else [])]
+    test_layout, test_cap = None, 0
+    for split, cams in configs:
+        if not cams:
+            continue
+        e_layout, e_cap = adaptive_eval_layout(
+            e_params, e_aux, cams, eval_cfg, e_rn or e_params.xyz.shape[0])
+        l1v, ps = evaluate_split(eval_metrics, e_params, e_aux, cams, bg,
+                                 active_sh, device, render_n=e_rn,
+                                 instance_cap=e_cap, tier_layout=e_layout)
+        log_fn(f"[ITER {iteration}] Evaluating {split}: "
+               f"L1 {l1v:.6f} PSNR {ps:.2f}")
+        if tb_writer is not None:
+            tb_writer.add_scalar(f"{split}/loss_viewpoint - l1_loss", l1v,
+                                 iteration)
+            tb_writer.add_scalar(f"{split}/loss_viewpoint - psnr", ps,
+                                 iteration)
+        history.setdefault(f"psnr_{split}", {})[iteration] = ps
+        if split == "test":
+            history["n_alive"][iteration] = int(num_alive(e_aux))
+            test_layout, test_cap = e_layout, e_cap
+    al = e_aux.alive
+    if bool(al.any()):
+        op = torch.sigmoid(e_params.opacity[al, 0]).cpu().numpy()
+        sc = torch.exp(e_params.scaling[al]).max(dim=1).values.cpu().numpy()
+        r = torch.linalg.vector_norm(e_params.xyz[al], dim=1).cpu().numpy()
+        log_fn(f"[ITER {iteration}] diag: opacity med {np.median(op):.3f} "
+               f"frac<0.005 {(op < 0.005).mean():.3f} | "
+               f"scale med {np.median(sc):.4f} "
+               f"p99 {np.percentile(sc, 99):.3f} max {sc.max():.2f} | "
+               f"xyz-radius p99 {np.percentile(r, 99):.1f} max {r.max():.1f}")
+    if scene.get_test_cameras():
+        if tb_writer is not None:
+            tb_writer.add_scalar("total_points", int(num_alive(e_aux)),
+                                 iteration)
+            tb_writer.add_histogram(
+                "scene/opacity_histogram",
+                torch.sigmoid(e_params.opacity[al, 0]).cpu().numpy(),
+                iteration)
+        if model_cfg.model_path:
+            _dump_val_image(model_cfg.model_path, iteration, eval_render,
+                            e_params, e_aux, scene, bg, active_sh, device,
+                            render_n=e_rn, instance_cap=test_cap,
+                            tier_layout=test_layout)
+
+
+def _clone(tree):
+    return type(tree)(*[None if a is None else a.clone() for a in tree])
+
+
+def _write_history(model_path: str, history: dict) -> None:
+    if not model_path:
+        return
+    os.makedirs(model_path, exist_ok=True)
+    with open(os.path.join(model_path, "history.json"), "w") as f:
+        json.dump(history, f, indent=1)
+
+
+def _instance_bucket(load: int, n_render: int, raster_cfg: RasterConfig,
+                     margin: float = 1.35) -> int:
+    """Stream instance capacity from the measured tile load: half-power-of-
+    two buckets of margin·load (≥ 1024, CHUNK-aligned), clipped to the
+    exact tier-enumeration bound."""
+    from ..ops.binning import stream_instance_bound
+    bound = stream_instance_bound(n_render,
+                                  raster_cfg.max_tiles_per_gaussian,
+                                  raster_cfg.tier_budgets,
+                                  raster_cfg.tier_fracs)
+    target = max(1024, int(load * margin))
+    k = max(10, int(math.floor(math.log2(target))))
+    for b in (1 << k, (3 << k) >> 1, 1 << (k + 1)):
+        if b >= target:
+            break
+    return min(b, bound + (-bound) % 128)
+
+
+def _render_bucket(n_alive: int, capacity: int, margin: float = 1.2) -> int:
+    """Render-slice length: the smallest half-power-of-two (2^k or 1.5·2^k)
+    ≥ margin·n_alive; 0 (= the full capacity) when that reaches it. The
+    per-instance stages then track the live count, not the capacity."""
+    target = max(1024, int(n_alive * margin))
+    k = max(10, int(math.floor(math.log2(target))))
+    for b in (1 << k, (3 << k) >> 1, 1 << (k + 1)):
+        if b >= target:
+            break
+    return 0 if b >= capacity else b
+
+
+def _pad_tree(tree, new_capacity: int):
+    """Zero-pad every [C, ...] leaf of a params-shaped tuple."""
+    def f(leaf):
+        pad = leaf.new_zeros((new_capacity - leaf.shape[0],) + leaf.shape[1:])
+        return torch.cat([leaf, pad])
+    return type(tree)(*[None if a is None else f(a) for a in tree])
+
+
+def evaluate_split(eval_metrics, params, aux, cameras, bg, sh_degree,
+                   device, render_n: int = 0, instance_cap: int = 0,
+                   tier_layout=None):
+    """(mean L1, mean PSNR) over a camera list, one host read at the end."""
+    vals = [torch.stack(eval_metrics(
+        params, aux.alive, cam.view(device), cam.device_image(device), bg,
+        width=cam.image.shape[2], height=cam.image.shape[1],
+        sh_degree=sh_degree, render_n=render_n, instance_cap=instance_cap,
+        tier_layout=tier_layout)) for cam in cameras]
+    host = torch.stack(vals).cpu().numpy()
+    return float(np.mean(host[:, 0])), float(np.mean(host[:, 1]))
+
+
+def _make_tb_writer(model_path: str):
+    """TensorBoard writer via tensorboardX, optional like the reference."""
+    if not model_path:
+        return None
+    try:
+        from tensorboardX import SummaryWriter
+        return SummaryWriter(model_path)
+    except ImportError:
+        print("Tensorboard not available: not logging progress")
+        return None
+
+
+def _make_progress(first_iter: int, iterations: int):
+    """tqdm progress bar, optional like the reference."""
+    try:
+        from tqdm import tqdm
+        return tqdm(range(first_iter, iterations), desc="Training progress")
+    except ImportError:
+        return None
+
+
+def _start_profiler(device):
+    acts = [torch.profiler.ProfilerActivity.CPU]
+    if device.type == "cuda":
+        acts.append(torch.profiler.ProfilerActivity.CUDA)
+    prof = torch.profiler.profile(activities=acts)
+    prof.__enter__()
+    return prof
+
+
+def _stop_profiler(prof, profile_dir: str) -> None:
+    prof.__exit__(None, None, None)
+    os.makedirs(profile_dir, exist_ok=True)
+    prof.export_chrome_trace(os.path.join(profile_dir, "trace.json"))
+
+
+def _dump_val_image(model_path, iteration, eval_render, params, aux, scene,
+                    bg, sh_degree, device, render_n: int = 0,
+                    instance_cap: int = 0, tier_layout=None):
+    """Side-by-side [render | GT] validation PNG of the first test view."""
+    from PIL import Image
+    cam = scene.get_test_cameras()[0]
+    img = eval_render(params, aux.alive, cam.view(device), bg,
+                      width=cam.image.shape[2], height=cam.image.shape[1],
+                      sh_degree=sh_degree, render_n=render_n,
+                      instance_cap=instance_cap, tier_layout=tier_layout)
+    side = np.concatenate([img.cpu().numpy(),
+                           np.clip(np.asarray(cam.image), 0, 1)], axis=2)
+    Image.fromarray((side.transpose(1, 2, 0) * 255).astype(np.uint8)).save(
+        f"{model_path}/val_{iteration:05d}.png")

@@ -1,5 +1,5 @@
-"""The port's stream composite wrapper (ops/stream.py) and its CUDA kernel
-(csrc/stream_fwd.cu).
+"""The port's stream composite wrappers (ops/stream.py) and their CUDA
+kernels (csrc/stream_fwd.cu, csrc/stream_bwd.cu).
 
 This file imports neither JAX nor the JAX package, so the tests marked
 ``gpu`` also run on a machine with a card and no JAX:
@@ -10,8 +10,14 @@ This file imports neither JAX nor the JAX package, so the tests marked
 Each ``gpu`` test skips inside its body when there is no card. The kernel is
 held against ``composite_stream_plain`` within 2e-4 max abs (the bound the
 JAX package's kernels were held to against CPU f32; the two differ only in
-the last bits of exp, and a flipped 1/255 or 1e-4 threshold).
+the last bits of exp, and a flipped 1/255 or 1e-4 threshold). The backward
+kernel is held to ``composite_stream_bwd_plain`` per attribute row within
+1e-5 of that row's largest magnitude: the two replay the forward with the
+same rounding and differ only in the order of the sum over a tile's pixels.
 """
+
+import ast
+import pathlib
 
 import numpy as np
 import pytest
@@ -24,6 +30,7 @@ from mvs_gaussian_splatting_tpu_torch.ops.stream import (
 torch.set_num_threads(1)
 
 TOL = 2e-4
+BWD_REL = 1e-5
 
 
 def synthetic_stream(seed, long_len=2700):
@@ -36,11 +43,52 @@ def _args(s, device):
             + [s["tiles_x"], s["tile_w"], s["tile_h"]])
 
 
+def _cotangents(s, seed):
+    """A random g_out and a nonzero g_tfin for the stream ``s``."""
+    t, p = s["seg_start"].shape[0], s["tile_w"] * s["tile_h"]
+    rng = np.random.RandomState(100 + seed)
+    return (torch.from_numpy(rng.randn(t, p, 3).astype(np.float32)),
+            torch.from_numpy(rng.randn(t, p).astype(np.float32)))
+
+
+def bwd_gaps(got, want):
+    """Per attribute row: max |got − want| / max |want| (0 for zero rows,
+    which must then match exactly)."""
+    gaps = []
+    for r in range(want.shape[0]):
+        scale = float(want[r].abs().max())
+        err = float((got[r] - want[r]).abs().max())
+        gaps.append(err / scale if scale > 0 else (0.0 if err == 0 else
+                                                   float("inf")))
+    return gaps
+
+
 @pytest.fixture
 def cuda():
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA card")
     return torch.device("cuda")
+
+
+def test_port_imports_no_jax():
+    """No module of the port, and not chip_smoke.py, imports JAX or the JAX
+    package (the card's machine has neither)."""
+    root = pathlib.Path(__file__).resolve().parent.parent
+    files = sorted((root / "mvs_gaussian_splatting_tpu_torch").rglob("*.py"))
+    files.append(root / "chip_smoke.py")
+    banned = {"jax", "jaxlib", "mvs_gaussian_splatting_tpu"}
+    found = []
+    for path in files:
+        for node in ast.walk(ast.parse(path.read_text())):
+            if isinstance(node, ast.Import):
+                names = [a.name for a in node.names]
+            elif isinstance(node, ast.ImportFrom) and node.level == 0:
+                names = [node.module]
+            else:
+                continue
+            found += [f"{path.name}: {n}" for n in names
+                      if n.split(".")[0] in banned]
+    assert len(files) > 20 and not found, found
 
 
 class TestWrapperOnCPU:
@@ -95,6 +143,23 @@ class TestWrapperOnCPU:
             a[0] = a[0][:, ::2]
         with pytest.raises((ValueError, TypeError)):
             composite_stream(*a)
+
+    def test_cpu_backward_takes_plain_version(self):
+        s = synthetic_stream(6, long_len=600)
+        a = _args(s, "cpu")
+        attrs = a[0].clone().requires_grad_()
+        bg = a[3].clone().requires_grad_()
+        g_out, g_tfin = _cotangents(s, 6)
+        before = stream.bwd_launches
+        out, tfin = composite_stream(attrs, a[1], a[2], bg, *a[4:])
+        torch.autograd.backward((out, tfin), (g_out, g_tfin))
+        assert stream.bwd_launches == before
+        want, want_bg = stream.composite_stream_bwd_plain(
+            *a, out.detach(), tfin.detach(), g_out, g_tfin)
+        torch.testing.assert_close(attrs.grad, want, rtol=0, atol=0)
+        torch.testing.assert_close(bg.grad, want_bg, rtol=0, atol=0)
+        assert float(want[:9].abs().max()) > 0
+        assert bool((want[9:] == 0).all())
 
 
 @pytest.mark.gpu
@@ -171,3 +236,131 @@ class TestKernel:
         assert out["render"].shape == (3, h, w)
         assert bool(torch.isfinite(out["render"]).all())
         assert int(out["instance_load"]) > 0
+
+
+def _stream_32x16(seed):
+    """A random stream on 32×16 tiles, the flagship recipe's geometry."""
+    return random_stream(seed, tiles_x=5, tiles_y=4, tile_w=32, tile_h=16)
+
+
+def _segment_mask(s, device):
+    width = s["attrs"].shape[1]
+    inside = torch.zeros(width, dtype=torch.bool, device=device)
+    for st, c in zip(s["seg_start"], s["counts"]):
+        inside[int(st):int(st) + int(c)] = True
+    return inside
+
+
+@pytest.mark.gpu
+class TestBackwardKernel:
+    @pytest.mark.parametrize("geometry", ["16x16", "32x16"])
+    @pytest.mark.parametrize("seed", [0, 1])
+    def test_kernel_matches_plain(self, cuda, geometry, seed):
+        s = (synthetic_stream(seed) if geometry == "16x16"
+             else _stream_32x16(seed))
+        a = _args(s, cuda)
+        out, tfin = composite_stream(*a)
+        g_out, g_tfin = (c.to(cuda) for c in _cotangents(s, seed))
+        before = stream.bwd_launches
+        got, got_bg = stream.composite_stream_bwd(*a, out, tfin, g_out,
+                                                  g_tfin)
+        torch.cuda.synchronize()
+        assert stream.bwd_launches == before + 1
+        want, want_bg = stream.composite_stream_bwd_plain(*a, out, tfin,
+                                                          g_out, g_tfin)
+        gaps = bwd_gaps(got, want)
+        print(f"{geometry} seed {seed}: per-row gaps "
+              + " ".join(f"{g:.2e}" for g in gaps[:9]))
+        assert max(gaps) <= BWD_REL
+        outside = ~_segment_mask(s, cuda)
+        assert bool((got[:, outside] == 0).all())
+        assert bool((got[9:] == 0).all())
+        torch.testing.assert_close(got_bg, want_bg, rtol=1e-6, atol=0)
+
+    def test_autograd_routes_to_kernel(self, cuda, monkeypatch):
+        def refuse(*args, **kwargs):
+            raise AssertionError("CUDA tensor reached a plain version")
+
+        monkeypatch.setattr(stream, "composite_stream_bwd_plain", refuse)
+        monkeypatch.setattr(stream, "composite_stream_plain", refuse)
+        s = _stream_32x16(2)
+        a = _args(s, cuda)
+        attrs = a[0].clone().requires_grad_()
+        g_out, g_tfin = (c.to(cuda) for c in _cotangents(s, 2))
+        fwd, bwd = stream.launches, stream.bwd_launches
+        out, tfin = composite_stream(attrs, *a[1:])
+        torch.autograd.backward((out, tfin), (g_out, g_tfin))
+        torch.cuda.synchronize()
+        assert (stream.launches, stream.bwd_launches) == (fwd + 1, bwd + 1)
+        assert bool(torch.isfinite(attrs.grad).all())
+        assert float(attrs.grad.abs().max()) > 0
+
+    def test_bad_launch_raises(self, cuda, monkeypatch):
+        # 48 pixels per tile is not whole warps: refused before any launch
+        s = random_stream(3, tiles_x=3, tiles_y=2, tile_w=8, tile_h=6,
+                          long_len=100)
+        a = _args(s, cuda)
+        out, tfin = composite_stream(*a)
+        g = torch.zeros_like(out), torch.zeros_like(tfin)
+        with pytest.raises(ValueError, match="multiple of 32"):
+            stream.composite_stream_bwd(*a, out, tfin, *g)
+        # 2048 threads per block: the card refuses the launch, and the
+        # wrapper raises on the error code instead of returning zeros
+        monkeypatch.setattr(stream, "_check", lambda *args: None)
+        s = random_stream(4, tiles_x=2, tiles_y=2, tile_w=64, tile_h=32,
+                          long_len=100)
+        a = _args(s, cuda)
+        out = torch.zeros((4, 64 * 32, 3), device=cuda)
+        tfin = torch.ones((4, 64 * 32), device=cuda)
+        with pytest.raises(RuntimeError, match="gs_stream_bwd launch failed"):
+            stream.composite_stream_bwd(*a, out, tfin, torch.zeros_like(out),
+                                        torch.zeros_like(tfin))
+        torch.cuda.synchronize()    # the refused launch left no fault behind
+
+    def test_train_step_launches_both_kernels(self, cuda, monkeypatch):
+        from mvs_gaussian_splatting_tpu_torch.models.gaussians import \
+            init_from_pcd
+        from mvs_gaussian_splatting_tpu_torch.ops.preprocess import CameraView
+        from mvs_gaussian_splatting_tpu_torch.ops.rasterize import \
+            RasterConfig
+        from mvs_gaussian_splatting_tpu_torch.train.config import \
+            OptimizationConfig
+        from mvs_gaussian_splatting_tpu_torch.train.optim import adam_init
+        from mvs_gaussian_splatting_tpu_torch.train.step import \
+            make_train_step
+        from mvs_gaussian_splatting_tpu_torch.utils import graphics
+
+        def refuse(*args, **kwargs):
+            raise AssertionError("CUDA tensor reached a plain version")
+
+        monkeypatch.setattr(stream, "composite_stream_plain", refuse)
+        monkeypatch.setattr(stream, "composite_stream_bwd_plain", refuse)
+        rng = np.random.RandomState(1)
+        n, w, h = 300, 96, 64
+        z = rng.uniform(2, 6, n)
+        pts = np.stack([rng.uniform(-0.8, 0.8, n) * z,
+                        rng.uniform(-0.6, 0.6, n) * z, z], -1)
+        params, aux = init_from_pcd(pts.astype(np.float32),
+                                    rng.rand(n, 3).astype(np.float32), 512,
+                                    device=cuda)
+        fovx = 1.0
+        fovy = graphics.focal2fov(graphics.fov2focal(fovx, w), h)
+        proj = graphics.projection_matrix(0.01, 100.0, fovx, fovy)
+        f32 = dict(dtype=torch.float32, device=cuda)
+        cam = CameraView(torch.eye(4, **f32), torch.tensor(proj, **f32),
+                         torch.zeros(3, **f32),
+                         torch.tensor(np.tan(fovx / 2), **f32),
+                         torch.tensor(np.tan(fovy / 2), **f32))
+        step = make_train_step(OptimizationConfig(),
+                               RasterConfig(tile_w=32, tile_h=16), 5.0)
+        gt = torch.rand((3, h, w), generator=torch.Generator(
+            device=cuda).manual_seed(0), device=cuda)
+        fwd, bwd = stream.launches, stream.bwd_launches
+        new, adam, aux2, m = step(params, adam_init(params), aux, cam, gt,
+                                  torch.zeros(3, device=cuda), 1, True,
+                                  width=w, height=h, sh_degree=0)
+        torch.cuda.synchronize()
+        assert (stream.launches, stream.bwd_launches) == (fwd + 1, bwd + 1)
+        assert bool(torch.isfinite(m.loss)) and int(m.nonfinite_grad_rows) == 0
+        assert float((new.xyz - params.xyz).abs().max()) > 0
+        assert float(aux2.denom.sum()) > 0
