@@ -7,13 +7,14 @@ Drives the port's serving path (``mvs_gaussian_splatting_tpu_torch``: PLY
 load → measured eval raster layout → ``render``) on the retained 115,320-
 Gaussian ``runs/specfinal`` model at its full 1237×822 resolution, on its 15
 held-out test views, and holds the result against that run's ground truth
-and against the JAX package's own renders of the same views. Phases, one
-JSON line each:
+and against the JAX package's own renders of the same views; then its
+training path in the default fast-math mode and in exact mode, and the
+padded-table backend. Phases, one JSON line each:
 
 1. card: name and power limit (nvidia-smi), torch and CUDA versions;
 2. build: ``csrc/*.cu`` → ``build/torch_kernels/libgs_kernels.so`` with
-   nvcc, and the kernel's ``-Xptxas -v`` register / shared-memory line;
-3. kernel vs plain version: ``stream_fwd`` against
+   nvcc, and each kernel's ``-Xptxas -v`` register / shared-memory line;
+3. kernel vs plain version: ``stream_fwd`` (B1) against
    ``composite_stream_plain`` on one real view's stream and on a random
    stream made from ``--seed`` (the 32 heaviest tiles plus 32 drawn with a
    seeded RNG, through ``tile_ids``), max abs ≤ 2e-4 on both outputs;
@@ -36,41 +37,72 @@ JSON line each:
    layout, a 64-tile subset of it, and random streams on 16×16 and 32×16
    tiles: per attribute row max |kernel − plain| ≤ 1e-5 · max |plain|, and
    exact zeros outside the segments and in rows 9..15;
+6b. fast_vs_plain: the fast-math kernels (B3f in ``csrc/stream_fwd.cu``,
+   B3b ``csrc/stream_bwd_fast.cu``) against ``composite_stream_fast_plain``
+   / ``composite_stream_bwd_fast_plain`` on the same four streams (the
+   random ones with a fifth of their entries far-centred wide splats):
+   image and final_T within 2e-3 max abs, each gradient row within 5e-3 of
+   its largest magnitude (the JAX package's fast-mode contract), exact
+   zeros outside the segments and in rows 9..15; the worst row reported;
+6c. padded_vs_plain: B4 (``csrc/padded_fwd.cu``) and B5
+   (``csrc/padded_bwd.cu``) against ``composite_padded_plain`` /
+   ``composite_padded_bwd_plain`` on random tables at 16×16 and 32×16:
+   within 2e-4 max abs and 1e-5 per plane, exact zeros in invalid slots;
 7. train_resume, the training path at the trained size: a COLMAP dataset
    of the 15 views (their ground-truth PNGs and poses, 13 train and 2 test
    under ``--eval``) and a checkpoint of the retained model at iteration
    25000 (115,320 alive rows, SH 3, zero Adam moments) are written to a
    temporary directory, and ``cli/train.py main([...])`` resumes it with
    the flagship's raster flags (32×16 tiles, 512 tiles per Gaussian, tiers
-   (4, 12, 64) at (0.25, 0.1, 0.01)) in exact mode for 200 steps, traced
-   at its iterations 100-120. Checks: finite losses, no non-finite
-   gradient rows, train PSNR not below its start, test PSNR not more than
-   0.1 dB below its start unless the train PSNR gained more than the test
-   PSNR lost (a deviation from the stated criterion, open in ROADMAP.md
-   section C: the 13 views are views the model never trained on, and the
-   recipe fits them; PERF.md §6), one backward launch per step.
-   Reported: the median step time after the traced window, the traced
-   window's host and device time per step in the step's forward, backward
-   and update ranges, and the backward kernel's time, plain time and bound
-   on 5 train views' streams. Then the same resume at a tenth of every
-   learning rate, measured only: its test and train PSNR trajectories;
-8. train_init, the densification machinery: 54,000 points sampled from the
-   retained model's means with N(0, 0.02) noise, colours from its SH DC
-   term, 600 steps densifying every 100 from iteration 100. Checks: clone
-   or split ran (each round's clone / split / prune counts are printed)
-   and the alive count changed, the final loss EMA is
-   below 0.8 × the first logged loss, the test PSNR rose over the
+   (4, 12, 64) at (0.25, 0.1, 0.01)) for 200 steps in two arms from the
+   same checkpoint and seed, each traced at its iterations 100-120: the
+   default fast-math mode (B3f / B3b) and exact mode (``--no-fast_math``,
+   B1 / B2). Checks per arm: finite losses, no non-finite gradient rows,
+   train PSNR not below its start, test PSNR not more than 0.1 dB below
+   its start unless the train PSNR gained more than the test PSNR lost (a
+   deviation from PR 4's stated criterion, restated in ROADMAP.md section
+   C), one backward launch per step of the arm's mode and none of the
+   other's, evals through B1 only; across arms, final train PSNR (13
+   views) and test PSNR (2 views) within 0.1 dB. Reported per arm: the
+   median step time after the traced window and the traced window's host
+   and device time per step in the step's forward, backward and update
+   ranges; on 5 train views' streams of the exact arm's model, B2's, B3f's
+   and B3b's times, plain times, gaps and bounds, and B1's time and bound
+   beside B3f's. Then the exact resume at a tenth of every learning rate,
+   measured only: its test and train PSNR trajectories;
+8. train_init, the densification machinery in the default fast-math mode:
+   54,000 points sampled from the retained model's means with N(0, 0.02)
+   noise, colours from its SH DC term, 600 steps densifying every 100 from
+   iteration 100. Checks: clone or split ran (each round's clone / split /
+   prune counts are printed) and the alive count changed, the final loss
+   EMA is below 0.8 × the first logged loss, the test PSNR rose over the
    iteration-1 render's, and every parameter is finite. Iterations 100-120
    are traced with ``--profile_dir``; the device time by kernel is
    printed;
+9. padded, the ``--backend pallas`` path: the 3 test views whose widest
+   splat spans the fewest tiles, rendered through ``render`` on padded
+   tables whose flat per-Gaussian budget covers that splat and whose
+   capacity covers the fullest tile (both overflow counters zero, the key
+   count and peak memory printed), each image within 2e-4 max abs of the
+   same view's stream render on the clip-free layout (zero overflow
+   there too); B4's and B5's times, plain times, gaps and bounds on the
+   first view's tables; then 20 training steps through ``cli/train.py``
+   with ``--backend pallas`` from the same checkpoint: finite losses, one
+   B4 and one B5 launch per step;
+9b. padded_cli: ``cli/render.py --backend pallas`` on the retained model
+   and the training dataset's 15 views, at the CLI's own measured layout
+   and default tile capacity: one B4 launch per view and no other kernel;
+   its overflow counters, PSNR against ground truth, time and peak memory
+   are reported (its clipping is counted, not held);
 
-then the ``kernels`` line (B1 and B2, with their launches on the main
-paths: the render slice of phase 4 and the training runs of phases 7 (not
-its control) and 8, each counted from zero) and last ``{"ok": true,
-"device": {...}}``. A failed check raises after the measurements and
-exits non-zero without printing those two lines; without a card it exits
-non-zero before printing any result. It writes nothing into the tree but the gitignored ``build/``;
-the training runs write into a temporary directory that is deleted.
+then the ``kernels`` line (B1, B2, B3f, B3b, B4 and B5, with their launches
+on the main paths: the render slice of phase 4, the two arms of phase 7
+(not its control), phase 8, phase 9 and phase 9b, each counted from zero)
+and last ``{"ok": true, "device": {...}}``. A failed check raises after the
+measurements and exits non-zero without printing those two lines; without a
+card it exits non-zero before printing any result. It writes nothing into
+the tree but the gitignored ``build/``; the training runs write into a
+temporary directory that is deleted.
 """
 
 from __future__ import annotations
@@ -92,27 +124,106 @@ VIEWS = os.path.join(MODEL, "test", "ours_25000")
 TOL = 2e-4                    # kernel vs plain version, max abs
 HBM_BYTES_PER_S = 3.35e12     # H100 SXM, NVIDIA data sheet
 F32_FLOPS_PER_S = 67e12       # H100 SXM, f32 outside the tensor cores
+TF32_FLOPS_PER_S = 495e12     # H100 SXM, TF32 tensor cores, dense
 FLOPS_PER_PAIR = 20           # per (entry, pixel) pair visited
 # backward: the replay's 20, the gradient's 35 and 9 adds of the pixel sum
 FLOPS_PER_PAIR_BWD = 64
+# fast backward on the CUDA cores: the replay's 20, dpower and w 15; on the
+# tensor cores: 4 m16n8k8 TF32 products (2,048 flops each) per 8 pixels x
+# 8 entries (dpower and w, each as a hi and a lo part)
+FLOPS_PER_PAIR_FAST_BWD = 35
+MMA_FLOPS_PER_PAIR = 4 * 2048 / 64
 BWD_REL = 1e-5                # backward kernel vs plain, per row, relative
-KERNEL_SOURCE = "mvs_gaussian_splatting_tpu_torch/csrc/stream_fwd.cu"
-REPLACES = "mvs_gaussian_splatting_tpu/ops/pallas/stream.py:89"
-BWD_SOURCE = "mvs_gaussian_splatting_tpu_torch/csrc/stream_bwd.cu"
-BWD_REPLACES = "mvs_gaussian_splatting_tpu/ops/pallas/stream.py:219"
+FAST_TOL = 2e-3               # fast kernels vs plain: the JAX package's
+FAST_REL = 5e-3               # fast-mode contract (tests/test_fast_math.py)
+ARM_PSNR = 0.1                # fast vs exact arm, final PSNR, dB
+PKG = "mvs_gaussian_splatting_tpu_torch/csrc/"
+JAX_PALLAS = "mvs_gaussian_splatting_tpu/ops/pallas/"
+# name → (source, the TPU kernel it replaces)
+KERNELS = {
+    "stream_fwd": (PKG + "stream_fwd.cu", JAX_PALLAS + "stream.py:89"),
+    "stream_bwd": (PKG + "stream_bwd.cu", JAX_PALLAS + "stream.py:219"),
+    "stream_fwd_fast": (PKG + "stream_fwd.cu",
+                        JAX_PALLAS + "composite.py:111"),
+    "stream_bwd_fast": (PKG + "stream_bwd_fast.cu",
+                        JAX_PALLAS + "stream.py:362"),
+    "padded_fwd": (PKG + "padded_fwd.cu", JAX_PALLAS + "composite.py:188"),
+    "padded_bwd": (PKG + "padded_bwd.cu", JAX_PALLAS + "composite.py:230"),
+}
 RESUME_ITER = 25000
 RESUME_STEPS = 200
 INIT_POINTS = 54_000
 INIT_STEPS = 600
 LOSS_DROP = 0.8               # train_init: final loss EMA < 0.8 × first
+PADDED_VIEWS = 3
+PADDED_STEPS = 20
 # the flagship recipe's raster flags (runs/specfinal/NOTE.md,
-# scripts/ref_scale_validation.py), exact mode
-TRAIN_FLAGS = ["--eval", "--resolution", "1", "--no-fast_math",
+# scripts/ref_scale_validation.py), in the default fast-math mode; the
+# exact arm adds --no-fast_math
+TRAIN_FLAGS = ["--eval", "--resolution", "1",
                "--tile_w", "32", "--tile_h", "16",
                "--max_tiles_per_gaussian", "512",
                "--tier_budgets", "4", "12", "64",
                "--tier_fracs", "0.25", "0.1", "0.01",
                "--max_capacity", "1000000"]
+
+
+def reset_launches():
+    """Sets every kernel's launch count to 0."""
+    from mvs_gaussian_splatting_tpu_torch.ops import composite, stream
+    stream.launches = stream.bwd_launches = 0
+    stream.fast_launches = stream.fast_bwd_launches = 0
+    composite.launches = composite.bwd_launches = 0
+
+
+def read_launches():
+    """Every kernel's launch count since the last reset_launches()."""
+    from mvs_gaussian_splatting_tpu_torch.ops import composite, stream
+    return {"stream_fwd": stream.launches, "stream_bwd": stream.bwd_launches,
+            "stream_fwd_fast": stream.fast_launches,
+            "stream_bwd_fast": stream.fast_bwd_launches,
+            "padded_fwd": composite.launches,
+            "padded_bwd": composite.bwd_launches}
+
+
+def cuda_ms(fn, reps=1):
+    """Mean device time of ``fn()`` over ``reps`` back-to-back calls, by
+    CUDA events."""
+    import torch
+    start = torch.cuda.Event(enable_timing=True)
+    stop = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(reps):
+        fn()
+    stop.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(stop) / reps
+
+
+def row_gaps(got, want):
+    """Per row of ``want``: max |got − want| / max |want| (a zero row must
+    match exactly)."""
+    rel = []
+    for r in range(want.shape[0]):
+        scale = float(want[r].abs().max())
+        err = float((got[r] - want[r]).abs().max())
+        rel.append(err / scale if scale > 0 else (0.0 if err == 0
+                                                  else float("inf")))
+    return rel
+
+
+def outside_segments(attrs, seg_start, counts):
+    """Whether ``attrs`` is exactly zero outside the segments and in rows
+    9..15."""
+    import torch
+    width = attrs.shape[1]
+    delta = torch.zeros(width + 1, dtype=torch.int32, device=attrs.device)
+    ends = (seg_start.long() + counts.long()).clamp(max=width)
+    delta.index_add_(0, seg_start.long(), torch.ones_like(seg_start))
+    delta.index_add_(0, ends, -torch.ones_like(seg_start))
+    inside = torch.cumsum(delta[:-1], 0) > 0
+    return bool((attrs[:, ~inside] == 0).all()) and bool(
+        (attrs[9:] == 0).all())
 
 
 def emit(obj):
@@ -144,23 +255,33 @@ def bwd_check(args, out, tfin, g_out, g_tfin):
     torch.cuda.synchronize()
     want, want_bg, visits = stream.composite_stream_bwd_plain(
         *args, out, tfin, g_out, g_tfin, count_visits=True)
-    rel = []
-    for r in range(9):
-        scale = float(want[r].abs().max())
-        err = float((got[r] - want[r]).abs().max())
-        rel.append(err / scale if scale > 0 else (0.0 if err == 0
-                                                  else float("inf")))
-    attrs, seg_start, counts = args[0], args[1], args[2]
-    width = attrs.shape[1]
-    delta = torch.zeros(width + 1, dtype=torch.int32, device=attrs.device)
-    ends = (seg_start.long() + counts.long()).clamp(max=width)
-    delta.index_add_(0, seg_start.long(), torch.ones_like(seg_start))
-    delta.index_add_(0, ends, -torch.ones_like(seg_start))
-    inside = torch.cumsum(delta[:-1], 0) > 0
-    zeros = bool((got[:, ~inside] == 0).all()) and bool((got[9:] == 0).all())
-    return {"rel_gap": rel, "max_abs_err": float((got - want).abs().max()),
+    return {"rel_gap": row_gaps(got[:9], want[:9]),
+            "max_abs_err": float((got - want).abs().max()),
             "g_bg_err": float((got_bg - want_bg).abs().max()),
-            "zeros_outside": zeros, "visits": visits}
+            "zeros_outside": outside_segments(got, args[1], args[2]),
+            "visits": visits}
+
+
+def fast_check(args, g_out, g_tfin):
+    """B3f and B3b on one stream against their plain versions, each
+    backward replaying its own forward: (B3f's max abs gap on out and
+    final_T, B3b's per-row relative gaps, its zeros outside the segments)."""
+    import torch
+
+    from mvs_gaussian_splatting_tpu_torch.ops import stream
+    out, tfin = stream.composite_stream(*args, fast=True)
+    got, _ = stream.composite_stream_bwd(*args, out, tfin, g_out, g_tfin,
+                                         fast=True)
+    torch.cuda.synchronize()
+    ref, rtfin = stream.composite_stream_fast_plain(*args)
+    want, _ = stream.composite_stream_bwd_fast_plain(*args, ref, rtfin,
+                                                     g_out, g_tfin)
+    rel = row_gaps(got[:9], want[:9])
+    return {"fwd_max_abs": max(float((out - ref).abs().max()),
+                               float((tfin - rtfin).abs().max())),
+            "bwd_rel_gap": rel, "worst_row": int(np.argmax(rel)),
+            "bwd_max_abs": float((got - want).abs().max()),
+            "zeros_outside": outside_segments(got, args[1], args[2])}
 
 
 def cotangents(t, p, seed, dev):
@@ -211,6 +332,136 @@ def bwd_vs_plain(view_stream, cam, subset, tiles_x, cfg, seed, faults):
         if max(c["rel_gap"]) > BWD_REL or not c["zeros_outside"]:
             faults.append(f"backward kernel vs plain, {name}: {c}")
     return {"max_abs_err": max(c["max_abs_err"] for c in cases.values())}
+
+
+def fast_vs_plain(view_stream, cam, subset, tiles_x, cfg, seed, faults):
+    """Phase 6b: B3f and B3b against their plain versions on a full view's
+    stream, a 64-tile subset and random streams with far-centred splats."""
+    import torch
+
+    from mvs_gaussian_splatting_tpu_torch.ops import stream
+    dev = torch.device("cuda")
+    cases = {}
+    bins, attrs = view_stream(cam)
+    t = tiles_x * (-(-cam.height // cfg.tile_h))
+    p = cfg.tile_w * cfg.tile_h
+    ids = torch.arange(t, dtype=torch.int32, device=dev)
+    bg = torch.tensor([0.1, 0.2, 0.3], device=dev)
+    full = (attrs, bins.seg_start, bins.counts, bg, ids, tiles_x,
+            cfg.tile_w, cfg.tile_h)
+    cases["full_view_16x16"] = fast_check(full, *cotangents(t, p, seed, dev))
+    sel = torch.from_numpy(subset(bins.counts.cpu().numpy(),
+                                  np.random.RandomState(seed + 1))).to(dev)
+    sub = (attrs, bins.seg_start[sel].contiguous(),
+           bins.counts[sel].contiguous(), bg, sel.to(torch.int32), tiles_x,
+           cfg.tile_w, cfg.tile_h)
+    cases["view_64_tiles"] = fast_check(sub, *cotangents(len(sel), p,
+                                                         seed + 2, dev))
+    del bins, attrs, full, sub
+    for tw, th in ((16, 16), (32, 16)):
+        syn = stream.random_stream(seed, tiles_x=8, tiles_y=6, tile_w=tw,
+                                   tile_h=th, far=0.2)
+        a = tuple(torch.from_numpy(syn[k]).to(dev) for k in
+                  ("attrs", "seg_start", "counts", "bg", "tile_ids")) + (
+            syn["tiles_x"], tw, th)
+        cases[f"random_far_{tw}x{th}"] = fast_check(
+            a, *cotangents(48, tw * th, seed + 3, dev))
+    worst = max(cases.items(), key=lambda kv: max(kv[1]["bwd_rel_gap"]))
+    emit({"phase": "fast_vs_plain", "tolerance": FAST_TOL,
+          "tolerance_rel": FAST_REL, "cases": cases,
+          "worst": {"case": worst[0], "row": worst[1]["worst_row"],
+                    "rel_gap": max(worst[1]["bwd_rel_gap"])}})
+    for name, c in cases.items():
+        if (c["fwd_max_abs"] > FAST_TOL or max(c["bwd_rel_gap"]) > FAST_REL
+                or not c["zeros_outside"]):
+            faults.append(f"fast kernels vs plain, {name}: {c}")
+    return {"fwd_max_abs": max(c["fwd_max_abs"] for c in cases.values()),
+            "bwd_rel": max(max(c["bwd_rel_gap"]) for c in cases.values())}
+
+
+def padded_check(args, seed, timed=False):
+    """B4 and B5 on one set of tables against their plain versions, B5 and
+    its plain version given B4's outputs: (B4's max abs gap, B5's per-plane
+    relative gaps over the 6 planes and 3 colours, whether every invalid or
+    uncounted slot's gradient is exactly zero, the visited pairs; with
+    ``timed``, kernel and plain times and bounds)."""
+    import torch
+
+    from mvs_gaussian_splatting_tpu_torch.ops import composite
+    planes, rgb, valid, counts = args[:4]
+    t, k = valid.shape
+    p = args[6] * args[7]
+    out, tfin = composite._padded_fwd(*args)
+    g_out, g_tfin = cotangents(t, p, seed, planes.device)
+    gpl, grgb, _ = composite.composite_padded_bwd(*args, out, tfin, g_out,
+                                                  g_tfin)
+    torch.cuda.synchronize()
+    ref, rtfin = composite.composite_padded_plain(*args)
+    wpl, wrgb, _, visits = composite.composite_padded_bwd_plain(
+        *args, out, tfin, g_out, g_tfin, count_visits=True)
+    dead = (valid == 0) | (torch.arange(k, device=valid.device)[None, :]
+                           >= counts.long()[:, None])
+    res = {"fwd_max_abs": max(float((out - ref).abs().max()),
+                              float((tfin - rtfin).abs().max())),
+           "bwd_rel_gap": row_gaps(torch.cat([gpl, grgb.permute(2, 0, 1)]),
+                                   torch.cat([wpl, wrgb.permute(2, 0, 1)])),
+           "zeros_dead": bool((gpl[:, dead] == 0).all())
+           and bool((grgb[dead] == 0).all()),
+           "dead_slots": int(dead.sum()), "visits": visits,
+           "max_abs_err": max(float((gpl - wpl).abs().max()),
+                              float((grgb - wrgb).abs().max()))}
+    del ref, rtfin, wpl, wrgb
+    if not timed:
+        return res
+    res["b4_ms"] = cuda_ms(lambda: composite._padded_fwd(*args), 5)
+    res["b4_plain_ms"] = cuda_ms(lambda: composite.composite_padded_plain(
+        *args))
+    res["b5_ms"] = cuda_ms(lambda: composite.composite_padded_bwd(
+        *args, out, tfin, g_out, g_tfin), 5)
+    res["b5_plain_ms"] = cuda_ms(lambda: composite.composite_padded_bwd_plain(
+        *args, out, tfin, g_out, g_tfin))
+    # bytes of the slots the kernels walk, min(counts, K) per tile: 10
+    # floats read per slot (6 planes, valid, rgb), B5 writing 9 gradients
+    # per slot, as B2's bound counts its segments' entries only
+    live = int(torch.clamp(counts, 0, k).sum())
+    b4_bytes = 10 * 4 * live + 4 * t + 12 + 16 * t * p
+    b5_bytes = 10 * 4 * live + 4 * t + 9 * 4 * live + 32 * t * p
+    res["live_slots"] = live
+    res["b4_bound"] = bound(b4_bytes, FLOPS_PER_PAIR * visits)
+    res["b5_bound"] = bound(b5_bytes, FLOPS_PER_PAIR_BWD * visits)
+    return res
+
+
+def bound(nbytes, flops, mma_flops=0.0):
+    """(least time in ms, what bounds it): bytes over the HBM rate against
+    f32 operations over the f32 rate and tensor-core operations over the
+    TF32 rate (separate pipes, so the larger of the two)."""
+    b_ms = nbytes / HBM_BYTES_PER_S * 1e3
+    f_ms = max(flops / F32_FLOPS_PER_S, mma_flops / TF32_FLOPS_PER_S) * 1e3
+    return (max(b_ms, f_ms), "bytes" if b_ms >= f_ms else "operations")
+
+
+def padded_vs_plain(seed, faults):
+    """Phase 6c: B4 and B5 against their plain versions on random tables."""
+    import torch
+
+    from mvs_gaussian_splatting_tpu_torch.ops.composite import random_tables
+    dev = torch.device("cuda")
+    cases = {}
+    for tw in (16, 32):
+        s = random_tables(seed, tiles_x=8, tiles_y=6, tile_w=tw)
+        args = [torch.from_numpy(s[k]).to(dev) for k in
+                ("planes", "rgb", "valid", "counts", "bg")] + [
+            s["tiles_x"], tw, 16]
+        cases[f"random_{tw}x16"] = padded_check(args, seed + 5)
+    emit({"phase": "padded_vs_plain", "tolerance": TOL,
+          "tolerance_rel": BWD_REL, "cases": cases})
+    for name, c in cases.items():
+        if (c["fwd_max_abs"] > TOL or max(c["bwd_rel_gap"]) > BWD_REL
+                or not c["zeros_dead"]):
+            faults.append(f"padded kernels vs plain, {name}: {c}")
+    return {"fwd_max_abs": max(c["fwd_max_abs"] for c in cases.values()),
+            "max_abs_err": max(c["max_abs_err"] for c in cases.values())}
 
 
 def write_training_inputs(tmp, cams, test_cams, seed):
@@ -272,10 +523,12 @@ def evaluate(params, aux, cams, eval_cfg):
                           instance_cap=cap, tier_layout=layout)
 
 
-def b2_on_views(params, aux, cams, base_cfg, seed):
-    """The backward kernel alone on each camera's stream, at the instance
-    cap the loop settles on for that load: its time over repeated launches,
-    its plain version's time, its gap and its bound."""
+def kernels_on_views(params, aux, cams, base_cfg, seed):
+    """The training kernels alone on each camera's stream, at the instance
+    cap the loop settles on for that load: B2, and B3f and B3b (each fast
+    backward given its own forward's outputs), each kernel's time over
+    repeated launches, its plain version's time, its gap and its bound; and
+    B1's time and bound on the same streams, beside B3f's."""
     import torch
 
     from mvs_gaussian_splatting_tpu_torch.models.gaussians import (
@@ -315,48 +568,82 @@ def b2_on_views(params, aux, cams, base_cfg, seed):
             call = (attrs, bins.seg_start, bins.counts, bg,
                     torch.arange(t, dtype=torch.int32, device=dev), tiles_x,
                     raster_cfg.tile_w, raster_cfg.tile_h)
-            out, tfin = stream.composite_stream(*call)
             g_out, g_tfin = cotangents(t, p, seed + 10 + k, dev)
-            start = torch.cuda.Event(enable_timing=True)
-            stop = torch.cuda.Event(enable_timing=True)
-            start.record()
-            for _ in range(reps):
-                stream.composite_stream_bwd(*call, out, tfin, g_out, g_tfin)
-            stop.record()
-            torch.cuda.synchronize()
-            k_ms = start.elapsed_time(stop) / reps
-            start.record()
-            stream.composite_stream_bwd_plain(*call, out, tfin, g_out,
-                                              g_tfin)
-            stop.record()
-            torch.cuda.synchronize()
-            p_ms = start.elapsed_time(stop)
+            out, tfin = stream.composite_stream(*call)
+            b1_ms = cuda_ms(lambda: stream.composite_stream(*call), reps)
+            b2_ms = cuda_ms(lambda: stream.composite_stream_bwd(
+                *call, out, tfin, g_out, g_tfin), reps)
+            b2_plain_ms = cuda_ms(lambda: stream.composite_stream_bwd_plain(
+                *call, out, tfin, g_out, g_tfin))
             chk = bwd_check(call, out, tfin, g_out, g_tfin)
+            fout, ftfin = stream.composite_stream(*call, fast=True)
+            b3f_ms = cuda_ms(lambda: stream.composite_stream(
+                *call, fast=True), reps)
+            ref, rtfin, fvisits = stream.composite_stream_fast_plain(
+                *call, count_visits=True)
+            b3f_plain_ms = cuda_ms(lambda: stream.composite_stream_fast_plain(
+                *call))
+            b3b_ms = cuda_ms(lambda: stream.composite_stream_bwd(
+                *call, fout, ftfin, g_out, g_tfin, fast=True), reps)
+            b3b_plain_ms = cuda_ms(
+                lambda: stream.composite_stream_bwd_fast_plain(
+                    *call, ref, rtfin, g_out, g_tfin))
+            fchk = fast_check(call, g_out, g_tfin)
         entries = int(bins.counts.sum())
-        nbytes = (2 * 9 * 4 * entries + 3 * 4 * t
-                  + (3 + 1 + 3 + 1) * 4 * t * p)
-        b_ms = nbytes / HBM_BYTES_PER_S * 1e3
-        f_ms = FLOPS_PER_PAIR_BWD * chk["visits"] / F32_FLOPS_PER_S * 1e3
+        bwd_bytes = (2 * 9 * 4 * entries + 3 * 4 * t
+                     + (3 + 1 + 3 + 1) * 4 * t * p)
+        fwd_bytes = 9 * 4 * entries + 3 * 4 * t + 3 * 4 + 16 * t * p
+        b1_bound = bound(fwd_bytes, FLOPS_PER_PAIR * chk["visits"])
+        b2_bound = bound(bwd_bytes, FLOPS_PER_PAIR_BWD * chk["visits"])
+        b3f_bound = bound(fwd_bytes, FLOPS_PER_PAIR * fvisits)
+        b3b_bound = bound(bwd_bytes, FLOPS_PER_PAIR_FAST_BWD * fvisits,
+                          MMA_FLOPS_PER_PAIR * fvisits)
         rows.append({"view": cam.image_name,
                      "instance_cap": raster_cfg.instance_cap,
-                     "overflow_capacity": overflow,
-                     "b2_ms": k_ms, "b2_plain_ms": p_ms, "entries": entries,
-                     "visits": chk["visits"], "bytes_ms": b_ms,
-                     "flops_ms": f_ms, "rel_gap": chk["rel_gap"],
-                     "max_abs_err": chk["max_abs_err"],
-                     "zeros_outside": chk["zeros_outside"]})
-        del bins, attrs, out, tfin, pre, call
+                     "overflow_capacity": overflow, "entries": entries,
+                     "visits": chk["visits"], "fast_visits": fvisits,
+                     "b1": {"ms": b1_ms, "bound_ms": b1_bound[0],
+                            "bound_by": b1_bound[1]},
+                     "b2": {"ms": b2_ms, "plain_ms": b2_plain_ms,
+                            "bound_ms": b2_bound[0], "bound_by": b2_bound[1],
+                            "rel_gap": chk["rel_gap"],
+                            "max_abs_err": chk["max_abs_err"],
+                            "zeros_outside": chk["zeros_outside"]},
+                     "b3f": {"ms": b3f_ms, "plain_ms": b3f_plain_ms,
+                             "bound_ms": b3f_bound[0],
+                             "bound_by": b3f_bound[1],
+                             "max_abs_err": fchk["fwd_max_abs"]},
+                     "b3b": {"ms": b3b_ms, "plain_ms": b3b_plain_ms,
+                             "bound_ms": b3b_bound[0],
+                             "bound_by": b3b_bound[1],
+                             "rel_gap": fchk["bwd_rel_gap"],
+                             "max_abs_err": fchk["bwd_max_abs"],
+                             "zeros_outside": fchk["zeros_outside"]}})
+        del bins, attrs, out, tfin, fout, ftfin, ref, rtfin, pre, call
     return rows
 
 
-def resume_run(tmp, data, seed, name, lr_scale=1.0, profile=False):
+def mean_kernel(rows, key):
+    """A kernel's per-view numbers, averaged, in the ``kernels`` line's
+    terms."""
+    sub = [r[key] for r in rows]
+    bound_ms = float(np.mean([v["bound_ms"] for v in sub]))
+    return {"ms": float(np.mean([v["ms"] for v in sub])),
+            "plain_ms": float(np.mean([v["plain_ms"] for v in sub])),
+            "bound_ms": bound_ms,
+            "bound_by": max(set(v["bound_by"] for v in sub),
+                            key=[v["bound_by"] for v in sub].count)}
+
+
+def resume_run(tmp, data, seed, name, flags=(), lr_scale=1.0,
+               profile=False):
     """Resume the retained model's checkpoint through ``cli/train.py main``
-    for RESUME_STEPS steps with every learning rate scaled by ``lr_scale``;
-    (params, aux, scene, history, launches, seconds, peak memory)."""
+    for RESUME_STEPS steps with ``flags`` after TRAIN_FLAGS and every
+    learning rate scaled by ``lr_scale``; (params, aux, scene, history,
+    launches counted from zero, seconds, peak memory)."""
     import torch
 
     from mvs_gaussian_splatting_tpu_torch.cli.train import main as train_main
-    from mvs_gaussian_splatting_tpu_torch.ops import stream
     from mvs_gaussian_splatting_tpu_torch.train.config import \
         OptimizationConfig
     opt = OptimizationConfig()
@@ -369,7 +656,7 @@ def resume_run(tmp, data, seed, name, lr_scale=1.0, profile=False):
             if profile else [])
     t0 = time.time()
     torch.cuda.reset_peak_memory_stats()
-    stream.launches = stream.bwd_launches = 0
+    reset_launches()
     params, aux, scene, hist = train_main(
         ["-s", data["dataset"], "-m", os.path.join(tmp, name),
          "--start_checkpoint", data["checkpoint"],
@@ -377,39 +664,20 @@ def resume_run(tmp, data, seed, name, lr_scale=1.0, profile=False):
          "--test_iterations", *(str(RESUME_ITER + k) for k in
                                 (1, 10, 50, 100, RESUME_STEPS)),
          "--log_every", "1", "--seed", str(seed), *lr_flags, *prof,
-         *TRAIN_FLAGS])
+         *TRAIN_FLAGS, *flags])
     torch.cuda.synchronize()
-    launches = {"stream_fwd": stream.launches,
-                "stream_bwd": stream.bwd_launches}
-    return (params, aux, scene, hist, launches, time.time() - t0,
+    return (params, aux, scene, hist, read_launches(), time.time() - t0,
             torch.cuda.max_memory_allocated())
 
 
-def train_resume(tmp, data, seed, faults):
-    """Phase 7: resume the retained model and train it 200 steps, traced at
-    its iterations 100-120; then the same run at a tenth of every learning
-    rate, measured only."""
-    import torch
-
-    from mvs_gaussian_splatting_tpu_torch.train.checkpoint import \
-        load_checkpoint
-    from mvs_gaussian_splatting_tpu_torch.train.config import PipelineConfig
-    from mvs_gaussian_splatting_tpu_torch.train.loop import (
-        PROFILE_WINDOW, eval_config, raster_config_from_pipe)
+def resume_arm(tmp, data, seed, name, flags, eval_cfg, before, faults):
+    """One traced 200-step resume and its checks (fast or exact mode by
+    ``flags``): (the phase's record, params, aux, the run's scene)."""
     params, aux, scene, hist, launches, train_s, peak = resume_run(
-        tmp, data, seed, "resume", profile=True)
-    trace = trace_summary(os.path.join(tmp, "profile_resume", "trace.json"))
-
-    pipe = PipelineConfig(tile_w=32, tile_h=16, max_tiles_per_gaussian=512,
-                          tier_budgets=(4, 12, 64),
-                          tier_fracs=(0.25, 0.1, 0.01), fast_math=False)
-    raster_cfg = raster_config_from_pipe(pipe)
-    eval_cfg = eval_config(raster_cfg)
-    dev = torch.device("cuda")
-    p0, _, aux0, _, _ = load_checkpoint(data["checkpoint"], dev)
+        tmp, data, seed, name, flags, profile=True)
+    from mvs_gaussian_splatting_tpu_torch.train.loop import PROFILE_WINDOW
+    trace = trace_summary(os.path.join(tmp, f"profile_{name}", "trace.json"))
     test, train = scene.get_test_cameras(), scene.get_train_cameras()
-    before = {"test": evaluate(p0, aux0, test, eval_cfg),
-              "train": evaluate(p0, aux0, train, eval_cfg)}
     after = {"test": evaluate(params, aux, test, eval_cfg),
              "train": evaluate(params, aux, train, eval_cfg)}
     losses = [v for _, v in hist["loss"]]
@@ -417,65 +685,130 @@ def train_resume(tmp, data, seed, faults):
     # step times after the traced window (the profiler slows its steps)
     untraced = [1e3 / r for i, r in hist["iter_time"]
                 if i > RESUME_ITER + PROFILE_WINDOW[1]]
-    rows = b2_on_views(params, aux, train[:5], raster_cfg, seed)
-    b2 = {k: float(np.mean([r[k] for r in rows]))
-          for k in ("b2_ms", "b2_plain_ms", "bytes_ms", "flops_ms")}
-    result = {
-        "launches": launches,
-        "b2": {"ms": b2["b2_ms"], "plain_ms": b2["b2_plain_ms"],
-               "bound_ms": float(np.mean([max(r["bytes_ms"], r["flops_ms"])
-                                          for r in rows])),
-               "bound_by": ("bytes" if b2["bytes_ms"] >= b2["flops_ms"]
-                            else "operations"),
-               "max_abs_err": max(r["max_abs_err"] for r in rows)}}
-    emit({"phase": "train_resume", "steps": RESUME_STEPS,
-          "gaussians": int(aux.alive.sum()), "test_views": len(test),
-          "train_views": len(train), "psnr_before": before,
-          "psnr_after": after,
-          "loop_psnr": {"test": hist["psnr_test"],
-                        "train_5_views": hist["psnr_train"]},
-          "loss_first": losses[0],
-          "loss_last": losses[-1], "nonfinite_grad_rows": bad_rows,
-          "launches": launches,
-          "step_ms_median_untraced": float(np.median(untraced)),
-          "step_ms_quartiles_untraced": [float(np.percentile(untraced, 25)),
-                                         float(np.percentile(untraced, 75))],
-          "untraced_steps": len(untraced),
-          "profile_iterations_100_120": trace,
-          "b2_on_views": rows, "b2": result["b2"],
-          "train_seconds": round(train_s, 1), "peak_memory_bytes": peak})
+    rec = {"phase": name, "steps": RESUME_STEPS, "flags": list(flags),
+           "gaussians": int(aux.alive.sum()), "test_views": len(test),
+           "train_views": len(train), "psnr_before": before,
+           "psnr_after": after,
+           "loop_psnr": {"test": hist["psnr_test"],
+                         "train_5_views": hist["psnr_train"]},
+           "loss_first": losses[0], "loss_last": losses[-1],
+           "nonfinite_grad_rows": bad_rows, "launches": launches,
+           "step_ms_median_untraced": float(np.median(untraced)),
+           "step_ms_quartiles_untraced": [
+               float(np.percentile(untraced, 25)),
+               float(np.percentile(untraced, 75))],
+           "untraced_steps": len(untraced),
+           "profile_iterations_100_120": trace,
+           "train_seconds": round(train_s, 1), "peak_memory_bytes": peak}
     if not all(np.isfinite(losses)):
-        faults.append("train_resume: a non-finite loss")
+        faults.append(f"{name}: a non-finite loss")
     if bad_rows:
-        faults.append(f"train_resume: {bad_rows} non-finite gradient rows")
-    # Deviation from the stated criterion (test PSNR at most 0.1 dB below
-    # its start), open in ROADMAP.md section C: the 13 training views are
-    # views the flagship never trained on, and 200 steps of its recipe fit
-    # them at the held-out views' expense (PERF.md §6). A fault is a
-    # test drop over 0.1 dB that the train gain does not exceed.
+        faults.append(f"{name}: {bad_rows} non-finite gradient rows")
+    # PR 4's criterion (test PSNR at most 0.1 dB below its start), restated
+    # in ROADMAP.md section C: the 13 training views are views the flagship
+    # never trained on, and 200 steps of its recipe fit them at the
+    # held-out views' expense (PERF.md §6). A fault is a test drop over
+    # 0.1 dB that the train gain does not exceed.
     gain = after["train"][1] - before["train"][1]
     drop = before["test"][1] - after["test"][1]
     if drop > 0.1 and drop > gain:
-        faults.append(f"train_resume: test PSNR {before['test'][1]} → "
+        faults.append(f"{name}: test PSNR {before['test'][1]} → "
                       f"{after['test'][1]} while train gained {gain}")
     if after["train"][1] < before["train"][1]:
-        faults.append(f"train_resume: train PSNR {before['train'][1]} → "
+        faults.append(f"{name}: train PSNR {before['train'][1]} → "
                       f"{after['train'][1]}")
-    if launches["stream_bwd"] != RESUME_STEPS:
-        faults.append(f"train_resume: {launches['stream_bwd']} backward "
-                      f"launches for {RESUME_STEPS} steps")
-    for r in rows:
-        if max(r["rel_gap"]) > BWD_REL or not r["zeros_outside"]:
-            faults.append(f"backward kernel vs plain on {r['view']}: "
-                          f"{r['rel_gap']}")
-        if r["overflow_capacity"]:
-            faults.append(f"backward kernel on {r['view']}: capacity "
-                          f"overflow {r['overflow_capacity']}")
-    del params, aux, p0, aux0
+    # one forward and one backward launch per step in the arm's mode, no
+    # backward of the other mode; evals (exact) through B1 only
+    if "--no-fast_math" in flags:
+        want = {"stream_fwd_fast": 0, "stream_bwd_fast": 0,
+                "stream_bwd": RESUME_STEPS}
+    else:
+        want = {"stream_fwd_fast": RESUME_STEPS,
+                "stream_bwd_fast": RESUME_STEPS, "stream_bwd": 0}
+    want.update(padded_fwd=0, padded_bwd=0)
+    if any(launches[k] != v for k, v in want.items()) or not (
+            launches["stream_fwd"] > 0):
+        faults.append(f"{name}: launches {launches}, want {want} and "
+                      "evals through stream_fwd")
+    return rec, params, aux, scene
 
-    # the control: the same resume at a tenth of every learning rate
+
+def train_resume(tmp, data, seed, faults):
+    """Phase 7: resume the retained model and train it 200 steps in the
+    default fast-math mode and in exact mode, each traced at its
+    iterations 100-120; the training kernels on 5 views' streams; then the
+    exact resume at a tenth of every learning rate, measured only."""
+    import torch
+
+    from mvs_gaussian_splatting_tpu_torch.data.scene import Scene
+    from mvs_gaussian_splatting_tpu_torch.train.checkpoint import \
+        load_checkpoint
+    from mvs_gaussian_splatting_tpu_torch.train.config import (
+        ModelConfig, PipelineConfig)
+    from mvs_gaussian_splatting_tpu_torch.train.loop import (
+        eval_config, raster_config_from_pipe)
+    pipe = PipelineConfig(tile_w=32, tile_h=16, max_tiles_per_gaussian=512,
+                          tier_budgets=(4, 12, 64),
+                          tier_fracs=(0.25, 0.1, 0.01))
+    raster_cfg = raster_config_from_pipe(pipe)._replace(fast_math=False)
+    eval_cfg = eval_config(raster_cfg)
+    dev = torch.device("cuda")
+    # the views before training (their order does not matter here)
+    scene = Scene(ModelConfig(source_path=data["dataset"], eval=True,
+                              resolution=1), shuffle=False)
+    test, train = scene.get_test_cameras(), scene.get_train_cameras()
+    p0, _, aux0, _, _ = load_checkpoint(data["checkpoint"], dev)
+    before = {"test": evaluate(p0, aux0, test, eval_cfg),
+              "train": evaluate(p0, aux0, train, eval_cfg)}
+    del p0, aux0
+
+    fast_rec, _, _, _ = resume_arm(tmp, data, seed, "train_resume_fast",
+                                   [], eval_cfg, before, faults)
+    emit(fast_rec)
+    exact_rec, params, aux, run_scene = resume_arm(
+        tmp, data, seed, "train_resume", ["--no-fast_math"], eval_cfg,
+        before, faults)
+    arms = {"fast": fast_rec, "exact": exact_rec}
+    gaps = {split: arms["fast"]["psnr_after"][split][1]
+            - arms["exact"]["psnr_after"][split][1]
+            for split in ("test", "train")}
+    if max(abs(v) for v in gaps.values()) > ARM_PSNR:
+        faults.append(f"fast vs exact arm: final PSNR gaps {gaps}")
+    # the 5 views PR 4 timed B2 on: the first of the run's seeded order
+    rows = kernels_on_views(params, aux, run_scene.get_train_cameras()[:5],
+                            raster_cfg, seed)
+    result = {"launches": {k: v["launches"] for k, v in arms.items()},
+              "b2": mean_kernel(rows, "b2"), "b3f": mean_kernel(rows, "b3f"),
+              "b3b": mean_kernel(rows, "b3b")}
+    result["b2"]["max_abs_err"] = max(r["b2"]["max_abs_err"] for r in rows)
+    result["b3f"]["max_abs_err"] = max(r["b3f"]["max_abs_err"] for r in rows)
+    result["b3b"]["max_abs_err"] = max(r["b3b"]["max_abs_err"] for r in rows)
+    exact_rec.update({"kernels_on_views": rows,
+                      "kernels": {k: result[k] for k in
+                                  ("b2", "b3f", "b3b")},
+                      "b1_ms_on_train_views": float(np.mean(
+                          [r["b1"]["ms"] for r in rows])),
+                      "fast_minus_exact_psnr": gaps,
+                      "step_ms_median_untraced_fast":
+                          fast_rec["step_ms_median_untraced"]})
+    emit(exact_rec)
+    for r in rows:
+        if max(r["b2"]["rel_gap"]) > BWD_REL or not r["b2"]["zeros_outside"]:
+            faults.append(f"backward kernel vs plain on {r['view']}: "
+                          f"{r['b2']['rel_gap']}")
+        if (r["b3f"]["max_abs_err"] > FAST_TOL
+                or max(r["b3b"]["rel_gap"]) > FAST_REL
+                or not r["b3b"]["zeros_outside"]):
+            faults.append(f"fast kernels vs plain on {r['view']}: "
+                          f"{r['b3f']}, {r['b3b']}")
+        if r["overflow_capacity"]:
+            faults.append(f"training kernels on {r['view']}: capacity "
+                          f"overflow {r['overflow_capacity']}")
+    del params, aux
+
+    # the control: the exact resume at a tenth of every learning rate
     params, aux, _, hist, _, train_s, _ = resume_run(
-        tmp, data, seed, "resume_lr_tenth", lr_scale=0.1)
+        tmp, data, seed, "resume_lr_tenth", ["--no-fast_math"], lr_scale=0.1)
     emit({"phase": "train_resume_lr_tenth", "steps": RESUME_STEPS,
           "psnr_after": {"test": evaluate(params, aux, test, eval_cfg),
                          "train": evaluate(params, aux, train, eval_cfg)},
@@ -533,14 +866,14 @@ def trace_summary(path, top=12):
 
 
 def train_init(tmp, data, seed, faults):
-    """Phase 8: train from 54,000 points with densification."""
+    """Phase 8: train from 54,000 points with densification, in the default
+    fast-math mode."""
     import torch
 
     from mvs_gaussian_splatting_tpu_torch.cli.train import main as train_main
-    from mvs_gaussian_splatting_tpu_torch.ops import stream
     t0 = time.time()
     torch.cuda.reset_peak_memory_stats()
-    stream.launches = stream.bwd_launches = 0
+    reset_launches()
     params, aux, _, hist = train_main(
         ["-s", data["dataset"], "-m", os.path.join(tmp, "init"),
          "--iterations", str(INIT_STEPS), "--densify_from_iter", "100",
@@ -548,8 +881,7 @@ def train_init(tmp, data, seed, faults):
          str(INIT_STEPS), "--log_every", "10", "--seed", str(seed),
          "--profile_dir", os.path.join(tmp, "profile"), *TRAIN_FLAGS])
     torch.cuda.synchronize()
-    launches = {"stream_fwd": stream.launches,
-                "stream_bwd": stream.bwd_launches}
+    launches = read_launches()
     losses = [v for _, v in hist["loss"]]
     ema = 0.0
     for v in losses:
@@ -582,6 +914,222 @@ def train_init(tmp, data, seed, faults):
         faults.append(f"train_init: test PSNR {psnr}")
     if not finite:
         faults.append("train_init: non-finite parameters")
+    if (launches["stream_bwd_fast"] != INIT_STEPS
+            or launches["stream_fwd_fast"] != INIT_STEPS
+            or launches["stream_bwd"]):
+        faults.append(f"train_init: launches {launches}, want one fast "
+                      "forward and backward per step and no exact backward")
+    return {"launches": launches}
+
+
+def padded_tables(params, cam, cfg):
+    """(planes, rgb, valid, counts) of one view on the padded layout
+    ``cfg``, as ``rasterize`` builds them for B4, and the bins."""
+    import torch
+
+    from mvs_gaussian_splatting_tpu_torch.models.gaussians import (
+        activated, get_features)
+    from mvs_gaussian_splatting_tpu_torch.ops.binning import bin_gaussians
+    from mvs_gaussian_splatting_tpu_torch.ops.preprocess import preprocess
+    from mvs_gaussian_splatting_tpu_torch.ops.rasterize import gather_tables
+    dev = params.xyz.device
+    with torch.no_grad():
+        s, r, o = activated(params)
+        pre = preprocess(params.xyz, o, cam.view(dev), cam.width, cam.height,
+                         scales=s, rotations=r, shs=get_features(params),
+                         sh_degree=3, tile_w=cfg.tile_w, tile_h=cfg.tile_h)
+        tiles_x = -(-cam.width // cfg.tile_w)
+        tiles_y = -(-cam.height // cfg.tile_h)
+        bins = bin_gaussians(pre, tiles_x, tiles_y,
+                             cfg.max_tiles_per_gaussian, cfg.tile_capacity,
+                             tile_w=cfg.tile_w, tile_h=cfg.tile_h)
+        cols = gather_tables(pre, bins)
+        return (cols[:6], cols[6:9].permute(1, 2, 0).contiguous(),
+                bins.valid.to(torch.float32), bins.counts, tiles_x), bins
+
+
+def padded_phase(params, test_cams, free_cfg, data, tmp, seed, faults):
+    """Phase 9: the padded backend (B4 / B5) renders test views on a
+    layout without overflow, against the stream render, then trains."""
+    import torch
+
+    from mvs_gaussian_splatting_tpu_torch.cli.render import \
+        measure_tile_needs
+    from mvs_gaussian_splatting_tpu_torch.cli.train import main as train_main
+    from mvs_gaussian_splatting_tpu_torch.models.gaussians import (
+        activated, get_features)
+    from mvs_gaussian_splatting_tpu_torch.ops.binning import ENUM_BLOCK
+    from mvs_gaussian_splatting_tpu_torch.ops.preprocess import preprocess
+    from mvs_gaussian_splatting_tpu_torch.ops.rasterize import \
+        bin_and_pack_stream
+    from mvs_gaussian_splatting_tpu_torch.ops.render import render
+    dev = torch.device("cuda")
+    n = int(params.xyz.shape[0])
+    tw, th = free_cfg.tile_w, free_cfg.tile_h
+    # the views whose widest splat spans the fewest tiles: bin_gaussians
+    # enumerates N × (that span) instance keys
+    need = [int(measure_tile_needs(params, [c], tw, th).max())
+            for c in test_cams]
+    pick = [int(i) for i in np.argsort(need, kind="stable")[:PADDED_VIEWS]]
+    views = [test_cams[i] for i in pick]
+    d = max(need[i] for i in pick)
+    bg = torch.zeros(3, device=dev)
+    stream_imgs, stream_rows, k_need, load = [], [], 0, 0
+    with torch.no_grad():
+        s, r, o = activated(params)
+        for cam in views:
+            out = render(cam.view(dev), cam.width, cam.height, params, bg,
+                         sh_degree=3, raster_config=free_cfg)
+            stream_imgs.append(out["render"])
+            stream_rows.append({
+                "overflow_tiles": int(out["overflow_tiles"]),
+                "overflow_capacity": int(out["overflow_capacity"])})
+            load = max(load, int(out["instance_load"]))
+            pre = preprocess(params.xyz, o, cam.view(dev), cam.width,
+                             cam.height, scales=s, rotations=r,
+                             shs=get_features(params), sh_degree=3,
+                             tile_w=tw, tile_h=th)
+            bins, attrs = bin_and_pack_stream(pre, -(-cam.width // tw),
+                                              -(-cam.height // th), free_cfg)
+            k_need = max(k_need, int(bins.counts_raw.max()))
+            del pre, bins, attrs
+    k = k_need + (-k_need) % 32
+    cfg = free_cfg._replace(backend="pallas", max_tiles_per_gaussian=d,
+                            tile_capacity=k)
+    keys = n * d
+    # bin_gaussians enumerates the N x d instances in blocks of ENUM_BLOCK,
+    # about 64 bytes of temporaries each, and sorts the valid ones (as many
+    # as the clip-free stream's instances): int64 keys, their sorted copy
+    # and its int64 indices
+    reckoned = min(keys, ENUM_BLOCK) * 64 + load * (8 + 8 + 8)
+    torch.cuda.reset_peak_memory_stats()
+    held = torch.cuda.memory_allocated()
+    reset_launches()
+    rows = []
+    with torch.no_grad():
+        for cam, ref, srow in zip(views, stream_imgs, stream_rows):
+            t0 = time.perf_counter()
+            out = render(cam.view(dev), cam.width, cam.height, params, bg,
+                         sh_degree=3, raster_config=cfg)
+            torch.cuda.synchronize()
+            rows.append({"view": cam.image_name,
+                         "render_ms": (time.perf_counter() - t0) * 1e3,
+                         "max_abs_vs_stream": float(
+                             (out["render"] - ref).abs().max()),
+                         "overflow_tiles": int(out["overflow_tiles"]),
+                         "overflow_capacity": int(out["overflow_capacity"]),
+                         "stream": srow})
+    render_launches = read_launches()
+    peak = torch.cuda.max_memory_allocated()
+    args, bins = padded_tables(params, views[0], cfg)
+    args = list(args[:4]) + [bg, args[4], tw, th]
+    chk = padded_check(args, seed + 7, timed=True)
+    slots = int(bins.valid.numel())
+    del args, bins
+
+    reset_launches()
+    t0 = time.time()
+    _, _, _, hist = train_main(
+        ["-s", data["dataset"], "-m", os.path.join(tmp, "padded"),
+         "--start_checkpoint", data["checkpoint"],
+         "--iterations", str(RESUME_ITER + PADDED_STEPS), "--log_every", "1",
+         "--seed", str(seed), *TRAIN_FLAGS, "--backend", "pallas"])
+    torch.cuda.synchronize()
+    train_launches = read_launches()
+    losses = [v for _, v in hist["loss"]]
+    launches = {key: render_launches[key] + train_launches[key]
+                for key in render_launches}
+    emit({"phase": "padded", "views": rows, "max_tiles_per_gaussian": d,
+          "tile_capacity": k, "enumerated_instances": keys,
+          "valid_instances": load, "reckoned_bytes": reckoned,
+          "peak_memory_bytes": peak, "held_before_bytes": held,
+          "table_slots": slots, "tables_check": {
+              key: v for key, v in chk.items()
+              if not key.endswith(("_ms", "_bound"))},
+          "b4": {"ms": chk["b4_ms"], "plain_ms": chk["b4_plain_ms"],
+                 "bound_ms": chk["b4_bound"][0],
+                 "bound_by": chk["b4_bound"][1]},
+          "b5": {"ms": chk["b5_ms"], "plain_ms": chk["b5_plain_ms"],
+                 "bound_ms": chk["b5_bound"][0],
+                 "bound_by": chk["b5_bound"][1]},
+          "train_steps": PADDED_STEPS, "train_losses": losses,
+          "train_seconds": round(time.time() - t0, 1),
+          "launches": {"render": render_launches, "train": train_launches}})
+    for row in rows:
+        if (row["max_abs_vs_stream"] > TOL or row["overflow_tiles"]
+                or row["overflow_capacity"] or any(row["stream"].values())):
+            faults.append(f"padded render of {row['view']}: {row}")
+    if (chk["fwd_max_abs"] > TOL or max(chk["bwd_rel_gap"]) > BWD_REL
+            or not chk["zeros_dead"]):
+        faults.append(f"padded kernels vs plain on {views[0].image_name}: "
+                      f"{chk}")
+    if len(losses) != PADDED_STEPS or not all(np.isfinite(losses)):
+        faults.append(f"padded training losses {losses}")
+    if (render_launches["padded_fwd"] != len(views)
+            or train_launches["padded_fwd"] != PADDED_STEPS
+            or train_launches["padded_bwd"] != PADDED_STEPS):
+        faults.append(f"padded launches: render {render_launches}, train "
+                      f"{train_launches}")
+    return {"launches": launches,
+            "b4": {"ms": chk["b4_ms"], "plain_ms": chk["b4_plain_ms"],
+                   "bound_ms": chk["b4_bound"][0],
+                   "bound_by": chk["b4_bound"][1],
+                   "max_abs_err": chk["fwd_max_abs"]},
+            "b5": {"ms": chk["b5_ms"], "plain_ms": chk["b5_plain_ms"],
+                   "bound_ms": chk["b5_bound"][0],
+                   "bound_by": chk["b5_bound"][1],
+                   "max_abs_err": chk["max_abs_err"]}}
+
+
+def padded_cli(tmp, data, faults):
+    """Phase 9b: ``cli/render.py --backend pallas`` as a user runs it on the
+    retained model, on the 15 views of the training dataset (13 train, 2
+    test) at the CLI's own measured layout and default tile capacity:
+    its clipping is counted, not held. Checks one B4 launch per view and no
+    other kernel."""
+    import contextlib
+    import io
+
+    import torch
+
+    from mvs_gaussian_splatting_tpu_torch.cli.render import \
+        main as render_main
+    model = os.path.join(tmp, "cli_model")
+    os.makedirs(model)
+    os.symlink(os.path.join(MODEL, "point_cloud_final.ply.gz"),
+               os.path.join(model, "point_cloud_final.ply.gz"))
+    torch.cuda.reset_peak_memory_stats()
+    held = torch.cuda.memory_allocated()
+    reset_launches()
+    log = io.StringIO()
+    t0 = time.time()
+    with contextlib.redirect_stdout(log):
+        overflow = render_main(["-m", model, "-s", data["dataset"], "--eval",
+                                "--backend", "pallas"])
+    torch.cuda.synchronize()
+    seconds = time.time() - t0
+    launches = read_launches()
+    psnrs = {}
+    for split, ov in overflow.items():
+        out = os.path.join(model, split, "ours_final")
+        psnrs[split] = [psnr(load_png(os.path.join(out, "renders", name)),
+                             load_png(os.path.join(out, "gt", name)))[0]
+                        for name in (f"{i:05d}.png"
+                                     for i in range(ov["views"]))]
+    views = sum(ov["views"] for ov in overflow.values())
+    emit({"phase": "padded_cli", "log": log.getvalue().splitlines(),
+          "overflow": overflow, "psnr_gt": psnrs, "launches": launches,
+          "seconds": round(seconds, 2),
+          "peak_memory_bytes": torch.cuda.max_memory_allocated(),
+          "held_before_bytes": held})
+    want = dict.fromkeys(KERNELS, 0)
+    want["padded_fwd"] = views
+    if views != 15 or launches != want:
+        faults.append(f"padded CLI render: {views} views, launches "
+                      f"{launches}, want {want}")
+    if not all(p is not None and np.isfinite(p) for v in psnrs.values()
+               for p in v):
+        faults.append(f"padded CLI render: PSNR {psnrs}")
     return {"launches": launches}
 
 
@@ -628,8 +1176,13 @@ def main(argv=None):
     kernels.library()
     emit({"phase": "build", "seconds": round(time.time() - t0, 2),
           "library": os.path.relpath(kernels.LIBRARY, ROOT),
-          "ptxas": {"stream_fwd": kernels.ptxas_report("stream_fwd"),
-                    "stream_bwd": kernels.ptxas_report("stream_bwd")}})
+          "ptxas": {name: kernels.ptxas_report(mangled) for name, mangled in (
+              ("stream_fwd", "17stream_fwd_kernelILb0E"),
+              ("stream_fwd_fast", "17stream_fwd_kernelILb1E"),
+              ("stream_bwd", "17stream_bwd_kernel"),
+              ("stream_bwd_fast", "22stream_bwd_fast_kernel"),
+              ("padded_fwd", "17padded_fwd_kernel"),
+              ("padded_bwd", "17padded_bwd_kernel"))}})
 
     # the model, its cameras and the measured eval layout
     t0 = time.time()
@@ -723,7 +1276,7 @@ def main(argv=None):
 
     # 4. the slice: the main path, counted from zero
     torch.cuda.reset_peak_memory_stats()
-    stream.launches = 0
+    reset_launches()
     with torch.no_grad():                      # warm-up view
         render(test_cams[0].view(dev), w, h, params, bg, sh_degree=3,
                raster_config=cfg)
@@ -751,7 +1304,7 @@ def main(argv=None):
                      "overflow_capacity": int(out["overflow_capacity"]),
                      "instance_load": int(out["instance_load"]),
                      "finite": bool(torch.isfinite(img).all())})
-    launches = stream.launches
+    launches = read_launches()
     peak = torch.cuda.max_memory_allocated()
     mean_gt = float(np.mean([r["psnr_gt"] for r in rows]))
     emit({"phase": "slice", "views": rows, "mean_psnr_gt": mean_gt,
@@ -833,20 +1386,11 @@ def main(argv=None):
         stages = {name: ev[i].elapsed_time(ev[i + 1]) for i, name in
                   enumerate(("preprocess", "bin_and_pack", "composite",
                              "assemble"))}
-        start = torch.cuda.Event(enable_timing=True)
-        stop = torch.cuda.Event(enable_timing=True)
-        start.record()
-        for _ in range(reps):
-            stream.composite_stream(*call)
-        stop.record()
-        torch.cuda.synchronize()
-        k_ms = start.elapsed_time(stop) / reps
-        start.record()
-        ref, rtfin, visits = stream.composite_stream_plain(
-            *call, count_visits=True)
-        stop.record()
-        torch.cuda.synchronize()
-        p_ms = start.elapsed_time(stop)
+        k_ms = cuda_ms(lambda: stream.composite_stream(*call), reps)
+        plain = []
+        p_ms = cuda_ms(lambda: plain.append(stream.composite_stream_plain(
+            *call, count_visits=True)))
+        ref, rtfin, visits = plain[0]
         err = max(float((out - ref).abs().max()),
                   float((tfin - rtfin).abs().max()))
         t = tiles_x * tiles_y
@@ -861,7 +1405,7 @@ def main(argv=None):
                          "bytes": nbytes, "flops": flops, "bytes_ms": b_ms,
                          "flops_ms": f_ms, "entries": entries,
                          "visits": visits})
-        del bins, attrs, out, tfin, ref, rtfin, p
+        del bins, attrs, out, tfin, ref, rtfin, p, call, plain
     full_err = max(v["err"] for v in per_view)
     emit({"phase": "timing", "reps": reps, "views": per_view,
           "seconds_total": round(time.time() - t_start, 1)})
@@ -870,47 +1414,63 @@ def main(argv=None):
     # 6. backward kernel vs plain version
     bwd_gap = bwd_vs_plain(view_stream, test_cams[0], subset, tiles_x,
                            cfg, args.seed, faults)
+    # 6b-6c. the fast-math and padded kernels vs their plain versions
+    fast_gap = fast_vs_plain(view_stream, test_cams[0], subset, tiles_x,
+                             cfg, args.seed, faults)
+    padded_gap = padded_vs_plain(args.seed, faults)
 
-    # 7-8. the training path, in a temporary directory
+    # 7-9. the training paths and the padded backend, in a temporary
+    # directory
     tmp = tempfile.mkdtemp(prefix="gs_chip_smoke_")
     try:
         data = write_training_inputs(tmp, cams, test_cams, args.seed)
         resume = train_resume(tmp, data, args.seed, faults)
         init = train_init(tmp, data, args.seed, faults)
+        padded = padded_phase(params, test_cams, free, data, tmp, args.seed,
+                              faults)
+        cli = padded_cli(tmp, data, faults)
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
-    paths = {"render_slice": {"stream_fwd": launches, "stream_bwd": 0},
-             "train_resume": resume["launches"],
-             "train_init": init["launches"]}
-    emit({"phase": "main_path_launches", "paths": paths,
+    paths = {"render_slice": launches,
+             "train_resume_fast": resume["launches"]["fast"],
+             "train_resume_exact": resume["launches"]["exact"],
+             "train_init": init["launches"], "padded": padded["launches"],
+             "padded_cli": cli["launches"]}
+    totals = {k: sum(p[k] for p in paths.values()) for k in KERNELS}
+    emit({"phase": "main_path_launches", "paths": paths, "totals": totals,
           "seconds_total": round(time.time() - t_start, 1)})
-    for name in ("train_resume", "train_init"):
-        if min(paths[name].values()) == 0:
-            faults.append(f"{name}: a kernel never launched {paths[name]}")
+    for name, total in totals.items():
+        if total == 0:
+            faults.append(f"{name} never launched on the main paths {paths}")
     if faults:
         raise AssertionError("chip smoke failed: " + "; ".join(faults))
     mean = {k: float(np.mean([v[k] for v in per_view]))
             for k in ("ms", "plain_ms", "bytes_ms", "flops_ms")}
-    bound = float(np.mean([max(v["bytes_ms"], v["flops_ms"])
-                           for v in per_view]))
-    b2 = resume["b2"]
+    measured = {
+        "stream_fwd": {
+            "max_abs_err": max(max(gaps.values()), full_err),
+            "ms": mean["ms"], "plain_ms": mean["plain_ms"],
+            "bound_ms": float(np.mean([max(v["bytes_ms"], v["flops_ms"])
+                                       for v in per_view])),
+            "bound_by": ("bytes" if mean["bytes_ms"] >= mean["flops_ms"]
+                         else "operations")},
+        "stream_bwd": dict(resume["b2"], max_abs_err=max(
+            bwd_gap["max_abs_err"], resume["b2"]["max_abs_err"])),
+        "stream_fwd_fast": dict(resume["b3f"], max_abs_err=max(
+            fast_gap["fwd_max_abs"], resume["b3f"]["max_abs_err"])),
+        "stream_bwd_fast": resume["b3b"],
+        "padded_fwd": dict(padded["b4"], max_abs_err=max(
+            padded_gap["fwd_max_abs"], padded["b4"]["max_abs_err"])),
+        "padded_bwd": dict(padded["b5"], max_abs_err=max(
+            padded_gap["max_abs_err"], padded["b5"]["max_abs_err"])),
+    }
     emit({"kernels": [{
-        "name": "stream_fwd", "route": "cuda", "source": KERNEL_SOURCE,
-        "replaces": REPLACES,
-        "launches": sum(p["stream_fwd"] for p in paths.values()),
-        "max_abs_err": max(max(gaps.values()), full_err),
-        "ms": mean["ms"], "plain_ms": mean["plain_ms"],
-        "bound_ms": bound,
-        "bound_by": ("bytes" if mean["bytes_ms"] >= mean["flops_ms"]
-                     else "operations"),
-        "library_ms": None}, {
-        "name": "stream_bwd", "route": "cuda", "source": BWD_SOURCE,
-        "replaces": BWD_REPLACES,
-        "launches": sum(p["stream_bwd"] for p in paths.values()),
-        "max_abs_err": max(bwd_gap["max_abs_err"], b2["max_abs_err"]),
-        "ms": b2["ms"], "plain_ms": b2["plain_ms"],
-        "bound_ms": b2["bound_ms"], "bound_by": b2["bound_by"],
-        "library_ms": None}]})
+        "name": name, "route": "cuda", "source": KERNELS[name][0],
+        "replaces": KERNELS[name][1], "launches": totals[name],
+        "max_abs_err": m["max_abs_err"], "ms": m["ms"],
+        "plain_ms": m["plain_ms"], "bound_ms": m["bound_ms"],
+        "bound_by": m["bound_by"], "library_ms": None}
+        for name, m in measured.items()]})
     emit({"ok": True, "device": {"platform": "gpu", "kind": kind,
                                  "count": torch.cuda.device_count()}})
 

@@ -7,6 +7,12 @@ measured per-view tile needs, and writes ``<model>/<split>/ours_<iter>/
 {renders,gt}/NNNNN.png``.
 
     python -m mvs_gaussian_splatting_tpu_torch.cli.render -m <model_dir>
+
+Rendering is exact whatever ``--fast_math`` says; ``--backend pallas`` (or
+``jnp``) composites padded per-tile tables with the measured layout's
+``max_tiles_per_gaussian`` as the flat per-Gaussian budget and
+``--tile_capacity`` entries per tile. Each split's clipping (the overflow
+counters summed over its views) is printed and returned by :func:`main`.
 """
 
 from __future__ import annotations
@@ -111,11 +117,14 @@ def adaptive_eval_config(cfg, needs: np.ndarray, log=print,
 
 def render_set(model_path, name, iteration, cameras, params, bg, sh_degree,
                raster_cfg):
+    """Renders and writes ``cameras``; returns the overflow counters summed
+    over them."""
     render_path = os.path.join(model_path, name, f"ours_{iteration}", "renders")
     gt_path = os.path.join(model_path, name, f"ours_{iteration}", "gt")
     os.makedirs(render_path, exist_ok=True)
     os.makedirs(gt_path, exist_ok=True)
     dev = params.xyz.device
+    overflow = {"views": 0, "overflow_tiles": 0, "overflow_capacity": 0}
     for idx, cam in enumerate(cameras):
         with torch.no_grad():
             out = render(cam.view(dev), cam.width, cam.height, params, bg,
@@ -124,9 +133,16 @@ def render_set(model_path, name, iteration, cameras, params, bg, sh_degree,
         if cam.image is not None:
             save_image(torch.from_numpy(cam.image),
                        os.path.join(gt_path, f"{idx:05d}.png"))
+        overflow["views"] += 1
+        for key in ("overflow_tiles", "overflow_capacity"):
+            overflow[key] += int(out[key])
+    print(f"{name}: {overflow}")
+    return overflow
 
 
 def main(argv=None):
+    """Returns each rendered split's overflow counters (see
+    :func:`render_set`)."""
     parser = argparse.ArgumentParser(description="Testing script parameters")
     add_dataclass_args(parser, ModelConfig, sentinel=True)
     add_dataclass_args(parser, PipelineConfig)
@@ -187,14 +203,18 @@ def main(argv=None):
                                        raster_cfg.tile_h)
             raster_cfg = adaptive_eval_config(raster_cfg, needs)
 
+    overflow = {}
     if not args.skip_train:
-        render_set(model_cfg.model_path, "train", iteration,
-                   scene.get_train_cameras(), params, bg,
-                   model_cfg.sh_degree, raster_cfg)
+        overflow["train"] = render_set(
+            model_cfg.model_path, "train", iteration,
+            scene.get_train_cameras(), params, bg, model_cfg.sh_degree,
+            raster_cfg)
     if not args.skip_test:
-        render_set(model_cfg.model_path, "test", iteration,
-                   scene.get_test_cameras(), params, bg,
-                   model_cfg.sh_degree, raster_cfg)
+        overflow["test"] = render_set(
+            model_cfg.model_path, "test", iteration,
+            scene.get_test_cameras(), params, bg, model_cfg.sh_degree,
+            raster_cfg)
+    return overflow
 
 
 if __name__ == "__main__":

@@ -2,11 +2,11 @@
 ``--device`` (default ``cuda``).
 
     python -m mvs_gaussian_splatting_tpu_torch.cli.train -s <scene> -m <out> \\
-        --no-fast_math [...]
+        [...]
 
-The port composites in exact mode only so far: ``fast_math`` (on by default
-in the configuration, as in the JAX package) is refused until its kernels
-(B3 in ROADMAP.md) are ported, so pass ``--no-fast_math``.
+Training composites in fast-math mode by default, as in the JAX package
+(``--no-fast_math`` for exact mode); ``--backend pallas`` or ``jnp``
+composites padded per-tile tables instead of the instance stream.
 """
 
 from __future__ import annotations

@@ -30,10 +30,9 @@
 //
 // The replay has to take the forward's include and terminate decisions
 // exactly: if one differs, g.out - S_k no longer matches the saved out and
-// the gradient goes wrong without any NaN. So every product and sum of the
-// replay is rounded as stream_fwd.cu rounds it (__fmul_rn / __fadd_rn, never
-// contracted into FMAs), exp is the full-precision expf, and the library is
-// built without --use_fast_math.
+// the gradient goes wrong without any NaN. So the replay is
+// stream_common.cuh's backward_entry_exact, built on the same inline
+// functions as stream_fwd.cu's exact instantiation.
 //
 // What bounds it on an H100: operations. Each (entry, pixel) pair a tile
 // visits costs about 20 f32 operations of replay, about 30 of gradient and a
@@ -51,22 +50,12 @@
 // Overlapping the next batch's load (cp.async / TMA) and a cheaper
 // reduction are left for later.
 
-#include <cuda_runtime.h>
+#include "stream_common.cuh"
 
 namespace {
 
 constexpr int kUsedRows = 9;
 constexpr int kBatch = 32;  // entries staged per batch
-constexpr float kMinAlpha = 1.0f / 255.0f;
-constexpr float kMaxAlpha = 0.99f;
-constexpr float kMinTransmittance = 1e-4f;
-
-__device__ __forceinline__ float warp_sum(float v) {
-#pragma unroll
-  for (int off = 16; off > 0; off >>= 1)
-    v = __fadd_rn(v, __shfl_xor_sync(0xffffffffu, v, off));
-  return v;
-}
 
 __global__ void stream_bwd_kernel(const float* __restrict__ attrs,
                                   long long stride,
@@ -99,12 +88,12 @@ __global__ void stream_bwd_kernel(const float* __restrict__ attrs,
       max(0LL, min(static_cast<long long>(counts[t]), room)));
 
   const long long o = static_cast<long long>(t) * n_pix + p;
-  const float gr = g_out[3 * o + 0];
-  const float gg = g_out[3 * o + 1];
-  const float gb = g_out[3 * o + 2];
+  const float g_rgb[3] = {g_out[3 * o + 0], g_out[3 * o + 1],
+                          g_out[3 * o + 2]};
   const float g_dot_out = __fadd_rn(
-      __fadd_rn(__fmul_rn(gr, out[3 * o + 0]), __fmul_rn(gg, out[3 * o + 1])),
-      __fmul_rn(gb, out[3 * o + 2]));
+      __fadd_rn(__fmul_rn(g_rgb[0], out[3 * o + 0]),
+                __fmul_rn(g_rgb[1], out[3 * o + 1])),
+      __fmul_rn(g_rgb[2], out[3 * o + 2]));
   const float tfin_term = __fmul_rn(g_tfin[o], final_t[o]);
 
   float trans = 1.0f;
@@ -126,65 +115,14 @@ __global__ void stream_bwd_kernel(const float* __restrict__ attrs,
       float v[kUsedRows];
 #pragma unroll
       for (int r = 0; r < kUsedRows; ++r) v[r] = 0.0f;
-      bool include = false;
-      if (!done) {
-        const float dx = __fsub_rn(stage[k], px);
-        const float dy = __fsub_rn(stage[kBatch + k], py);
-        const float ca = stage[2 * kBatch + k];
-        const float cb = stage[3 * kBatch + k];
-        const float cc = stage[4 * kBatch + k];
-        const float quad = __fadd_rn(__fmul_rn(__fmul_rn(ca, dx), dx),
-                                     __fmul_rn(__fmul_rn(cc, dy), dy));
-        const float power = __fsub_rn(__fmul_rn(-0.5f, quad),
-                                      __fmul_rn(__fmul_rn(cb, dx), dy));
-        if (power <= 0.0f) {
-          const float op = stage[5 * kBatch + k];
-          const float g = expf(power);
-          const float raw = __fmul_rn(op, g);
-          const float alpha = raw > kMaxAlpha ? kMaxAlpha : raw;
-          if (alpha >= kMinAlpha) {
-            const float one_minus = __fsub_rn(1.0f, alpha);
-            const float next = __fmul_rn(trans, one_minus);
-            if (next < kMinTransmittance) {
-              done = true;
-            } else {
-              include = true;
-              const float r = stage[6 * kBatch + k];
-              const float gc = stage[7 * kBatch + k];
-              const float b = stage[8 * kBatch + k];
-              const float w = __fmul_rn(alpha, trans);
-              const float g_dot_rgb = __fadd_rn(
-                  __fadd_rn(__fmul_rn(gr, r), __fmul_rn(gg, gc)),
-                  __fmul_rn(gb, b));
-              prefix = __fadd_rn(prefix, __fmul_rn(w, g_dot_rgb));
-              const float dalpha = __fsub_rn(
-                  __fsub_rn(__fmul_rn(g_dot_rgb, trans),
-                            __fdiv_rn(__fsub_rn(g_dot_out, prefix),
-                                      one_minus)),
-                  __fdiv_rn(tfin_term, one_minus));
-              if (raw < kMaxAlpha) {
-                const float dpower = __fmul_rn(__fmul_rn(dalpha, op), g);
-                v[0] = __fmul_rn(dpower, -__fadd_rn(__fmul_rn(ca, dx),
-                                                    __fmul_rn(cb, dy)));
-                v[1] = __fmul_rn(dpower, -__fadd_rn(__fmul_rn(cc, dy),
-                                                    __fmul_rn(cb, dx)));
-                v[2] = __fmul_rn(dpower, __fmul_rn(__fmul_rn(-0.5f, dx), dx));
-                v[3] = __fmul_rn(dpower, __fmul_rn(-dx, dy));
-                v[4] = __fmul_rn(dpower, __fmul_rn(__fmul_rn(-0.5f, dy), dy));
-                v[5] = __fmul_rn(dalpha, g);
-              }
-              v[6] = __fmul_rn(gr, w);
-              v[7] = __fmul_rn(gg, w);
-              v[8] = __fmul_rn(gb, w);
-              trans = next;
-            }
-          }
-        }
-      }
+      const bool include =
+          !done && gs::backward_entry_exact(stage, kBatch, k, px, py, g_rgb,
+                                            g_dot_out, tfin_term, trans,
+                                            prefix, done, v);
       // the whole warp takes the same branch: shuffles need every lane
       if (__any_sync(0xffffffffu, include)) {
 #pragma unroll
-        for (int r = 0; r < kUsedRows; ++r) v[r] = warp_sum(v[r]);
+        for (int r = 0; r < kUsedRows; ++r) v[r] = gs::warp_sum(v[r]);
       }
       if (lane == 0) {
 #pragma unroll

@@ -1,10 +1,23 @@
 // Stream composite, forward: the per-tile front-to-back alpha composite of
-// the packed instance stream, in exact mode.
+// the packed instance stream, in exact mode (gs_stream_fwd, B1) and in fast
+// mode (gs_stream_fwd_fast, B3f).
 //
 // Replaces the TPU kernel ops/pallas/stream.py:_stream_fwd_kernel of the JAX
-// package (mvs_gaussian_splatting_tpu). Only the math and the I/O contract
-// carry over; the TPU layout (128-lane chunks, 128-aligned DMA windows with
+// package (mvs_gaussian_splatting_tpu), both of its instantiations
+// (fast=False and fast=True). Only the math and the I/O contract carry
+// over; the TPU layout (128-lane chunks, 128-aligned DMA windows with
 // lead-in masks, TILE_BATCH grid steps, lane prefix scans) does not.
+//
+// Fast mode: the TPU kernel's fast variant computes each 128-lane chunk's
+// transmittances as exp of a prefix sum of log(1 - alpha), one triangular
+// MXU product (composite.py:_cumprod_lanes_fast), because Mosaic has no
+// cumprod and its exact lane scan costs 7 shifted multiplies. Here a
+// pixel's loop holds T in a register, so there is no scan to approximate:
+// the fast forward is the exact loop with the relaxed arithmetic of
+// stream_common.cuh (T - alpha T and the colour sums as FMAs; alpha stays
+// exact, as its 1/255 threshold demands). It lands within the JAX
+// package's fast-mode contract (2e-3 max abs of the exact image);
+// stream_bwd_fast.cu replays it with the same functions.
 //
 // Inputs
 //   attrs     [16, stride] f32, attribute-major; a tile's entries are the
@@ -22,10 +35,9 @@
 // min(0.99, op * exp(power)); the entry contributes iff power <= 0 and
 // alpha >= 1/255, and is included iff T (1 - alpha) >= 1e-4. The first
 // contributing entry that fails that test is left out and ends the pixel.
-// The two thresholds decide which entries count, so every product and sum
-// is rounded as the JAX expression is written (__fmul_rn / __fadd_rn are
-// never contracted into FMAs) and exp is the full-precision expf: build
-// without --use_fast_math.
+// The two thresholds decide which entries count; stream_common.cuh pins
+// the rounding of every operation (exact mode: as the JAX expression is
+// written, full-precision expf; build without --use_fast_math).
 //
 // What bounds it on an H100: operations. Each (entry, pixel) pair a tile
 // visits costs about 20 f32 operations plus an expf, while each entry is
@@ -42,15 +54,13 @@
 // Overlapping the next batch's load with this batch's compute (cp.async or
 // TMA double buffering) and more pixels per thread are left for later.
 
-#include <cuda_runtime.h>
+#include "stream_common.cuh"
 
 namespace {
 
 constexpr int kUsedRows = 9;
-constexpr float kMinAlpha = 1.0f / 255.0f;
-constexpr float kMaxAlpha = 0.99f;
-constexpr float kMinTransmittance = 1e-4f;
 
+template <bool kFast>
 __global__ void stream_fwd_kernel(const float* __restrict__ attrs,
                                   long long stride,
                                   const int* __restrict__ seg_start,
@@ -76,7 +86,7 @@ __global__ void stream_fwd_kernel(const float* __restrict__ attrs,
       max(0LL, min(static_cast<long long>(counts[t]), room)));
 
   float trans = 1.0f;
-  float acc_r = 0.0f, acc_g = 0.0f, acc_b = 0.0f;
+  float acc[3] = {0.0f, 0.0f, 0.0f};
   bool done = false;
 
   for (int base = 0; base < count; base += n_pix) {
@@ -91,45 +101,33 @@ __global__ void stream_fwd_kernel(const float* __restrict__ attrs,
     }
     __syncthreads();
     if (done) continue;
-
-    for (int k = 0; k < n; ++k) {
-      const float dx = __fsub_rn(stage[k], px);
-      const float dy = __fsub_rn(stage[n_pix + k], py);
-      const float ca = stage[2 * n_pix + k];
-      const float cb = stage[3 * n_pix + k];
-      const float cc = stage[4 * n_pix + k];
-      const float quad = __fadd_rn(__fmul_rn(__fmul_rn(ca, dx), dx),
-                                   __fmul_rn(__fmul_rn(cc, dy), dy));
-      const float power = __fsub_rn(__fmul_rn(-0.5f, quad),
-                                    __fmul_rn(__fmul_rn(cb, dx), dy));
-      if (!(power <= 0.0f)) continue;
-      const float raw = __fmul_rn(stage[5 * n_pix + k], expf(power));
-      // min(0.99, raw) that keeps a NaN, as jnp.minimum / torch.minimum do
-      const float alpha = raw > kMaxAlpha ? kMaxAlpha : raw;
-      if (!(alpha >= kMinAlpha)) continue;
-      const float next = __fmul_rn(trans, __fsub_rn(1.0f, alpha));
-      if (next < kMinTransmittance) {
-        done = true;
-        break;
-      }
-      const float w = __fmul_rn(alpha, trans);
-      acc_r = __fadd_rn(acc_r, __fmul_rn(w, stage[6 * n_pix + k]));
-      acc_g = __fadd_rn(acc_g, __fmul_rn(w, stage[7 * n_pix + k]));
-      acc_b = __fadd_rn(acc_b, __fmul_rn(w, stage[8 * n_pix + k]));
-      trans = next;
-    }
+    gs::composite_batch<kFast>(stage, n_pix, n, px, py, trans, acc, done);
   }
 
   const long long o = static_cast<long long>(t) * n_pix + p;
-  out[3 * o + 0] = __fadd_rn(acc_r, __fmul_rn(trans, bg[0]));
-  out[3 * o + 1] = __fadd_rn(acc_g, __fmul_rn(trans, bg[1]));
-  out[3 * o + 2] = __fadd_rn(acc_b, __fmul_rn(trans, bg[2]));
+#pragma unroll
+  for (int c = 0; c < 3; ++c)
+    out[3 * o + c] = __fadd_rn(acc[c], __fmul_rn(trans, bg[c]));
   final_t[o] = trans;  // <= 1 by construction: min(1, T) of the TPU kernel
+}
+
+template <bool kFast>
+int launch(const float* attrs, long long stride, const int* seg_start,
+           const int* counts, const int* tile_ids, const float* bg,
+           float* out, float* final_t, int n_tiles, int tiles_x, int tile_w,
+           int tile_h, void* stream) {
+  const int n_pix = tile_w * tile_h;
+  const size_t smem = sizeof(float) * kUsedRows * n_pix;
+  stream_fwd_kernel<kFast><<<n_tiles, n_pix, smem,
+                             static_cast<cudaStream_t>(stream)>>>(
+      attrs, stride, seg_start, counts, tile_ids, bg, out, final_t, tiles_x,
+      tile_w, tile_h);
+  return static_cast<int>(cudaGetLastError());
 }
 
 }  // namespace
 
-// Launches one CTA per tile on `stream` and returns cudaGetLastError().
+// Launch one CTA per tile on `stream` and return cudaGetLastError().
 // The caller has checked shapes, types and devices, allocated the outputs,
 // and passes n_tiles > 0.
 extern "C" int gs_stream_fwd(const float* attrs, long long stride,
@@ -137,11 +135,16 @@ extern "C" int gs_stream_fwd(const float* attrs, long long stride,
                              const int* tile_ids, const float* bg, float* out,
                              float* final_t, int n_tiles, int tiles_x,
                              int tile_w, int tile_h, void* stream) {
-  const int n_pix = tile_w * tile_h;
-  const size_t smem = sizeof(float) * kUsedRows * n_pix;
-  stream_fwd_kernel<<<n_tiles, n_pix, smem,
-                      static_cast<cudaStream_t>(stream)>>>(
-      attrs, stride, seg_start, counts, tile_ids, bg, out, final_t, tiles_x,
-      tile_w, tile_h);
-  return static_cast<int>(cudaGetLastError());
+  return launch<false>(attrs, stride, seg_start, counts, tile_ids, bg, out,
+                       final_t, n_tiles, tiles_x, tile_w, tile_h, stream);
+}
+
+extern "C" int gs_stream_fwd_fast(const float* attrs, long long stride,
+                                  const int* seg_start, const int* counts,
+                                  const int* tile_ids, const float* bg,
+                                  float* out, float* final_t, int n_tiles,
+                                  int tiles_x, int tile_w, int tile_h,
+                                  void* stream) {
+  return launch<true>(attrs, stride, seg_start, counts, tile_ids, bg, out,
+                      final_t, n_tiles, tiles_x, tile_w, tile_h, stream);
 }

@@ -6,8 +6,8 @@ interface, ``build/torch_kernels/libgs_kernels.so`` under the repository
 root, loaded with ``ctypes``.
 No PyTorch header is included, so the build takes seconds. It happens at
 the first call of :func:`library` (never at import: machines without a card
-import every module), and again whenever a source is newer than the
-library. ``-Xptxas -v`` writes each kernel's registers and shared memory
+import every module), and again whenever a source or a header
+(``csrc/*.cuh``) is newer than the library. ``-Xptxas -v`` writes each kernel's registers and shared memory
 into ``build.log`` beside the library.
 """
 
@@ -31,11 +31,17 @@ _P = ctypes.c_void_p
 _I = ctypes.c_int
 # name → argtypes; every pointer and the stream are c_void_p, or ctypes
 # would pass them as 32-bit ints and cut them.
+_STREAM_FWD = [_P, ctypes.c_longlong, _P, _P, _P, _P, _P, _P,
+               _I, _I, _I, _I, _P]
+_STREAM_BWD = [_P, ctypes.c_longlong, _P, _P, _P, _P, _P, _P, _P, _P,
+               _I, _I, _I, _I, _P]
 _SIGNATURES = {
-    "gs_stream_fwd": [_P, ctypes.c_longlong, _P, _P, _P, _P, _P, _P,
-                      _I, _I, _I, _I, _P],
-    "gs_stream_bwd": [_P, ctypes.c_longlong, _P, _P, _P, _P, _P, _P, _P, _P,
-                      _I, _I, _I, _I, _P],
+    "gs_stream_fwd": _STREAM_FWD,            # B1
+    "gs_stream_fwd_fast": _STREAM_FWD,       # B3f
+    "gs_stream_bwd": _STREAM_BWD,            # B2
+    "gs_stream_bwd_fast": _STREAM_BWD,       # B3b
+    "gs_padded_fwd": [_P] * 7 + [_I] * 5 + [_P],          # B4
+    "gs_padded_bwd": [_P] * 10 + [_I] * 5 + [_P],         # B5
 }
 
 _lib = None
@@ -57,8 +63,9 @@ def build(force: bool = False) -> Path:
     """Compile ``csrc/*.cu`` into :data:`LIBRARY` if it is missing or stale:
     one ``nvcc -c`` per source, all started together, then one link."""
     srcs = sorted(CSRC.glob("*.cu"))
+    deps = srcs + sorted(CSRC.glob("*.cuh"))
     if (not force and LIBRARY.exists() and LIBRARY.stat().st_mtime
-            >= max(s.stat().st_mtime for s in srcs)):
+            >= max(s.stat().st_mtime for s in deps)):
         return LIBRARY
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     nvcc = _nvcc()

@@ -1,12 +1,21 @@
-"""Tile binning, stream half: the tile-sorted instance stream.
+"""Tile binning: the tile-sorted instance stream and the padded per-tile
+tables.
 
-Port of the stream half of the JAX package's ``ops/binning.py``
-(:func:`bin_instances_stream` and the host-side layout helpers). Gaussians
-are depth-sorted once, each emits its tile instances under tiered
-per-Gaussian budgets, and one sort on a packed ``(tile << rank_bits) |
-rank`` int32 key yields contiguous, depth-ordered per-tile segments that
-the stream composite reads in place. Every truncation is counted
-(``overflow_tiles``, ``overflow_capacity``), never silent.
+Port of the JAX package's ``ops/binning.py`` but for ``round_robin``:
+
+- :func:`bin_instances_stream` and the host-side layout helpers (the stream
+  backend). Gaussians are depth-sorted once, each emits its tile instances
+  under tiered per-Gaussian budgets, and one sort on a packed ``(tile <<
+  rank_bits) | rank`` int32 key yields contiguous, depth-ordered per-tile
+  segments that the stream composite reads in place.
+- :func:`bin_gaussians` (the padded ``"jnp"`` / ``"pallas"`` backends):
+  every Gaussian emits a flat budget of ``max_tiles_per_gaussian`` tile
+  instances, enumerated in blocks of Gaussians; one sort orders the valid
+  ones by (tile, depth), and each tile takes its ``tile_capacity``
+  front-most entries into a ``[T, K]`` table.
+
+Every truncation is counted (``overflow_tiles``, ``overflow_capacity``),
+never silent.
 
 The layout helpers (:func:`_tier_layout`, :func:`stream_instance_bound`,
 :func:`auto_instance_cap`, :func:`adaptive_tier_layout`) are host-side
@@ -39,6 +48,88 @@ def _tile_in_level_set(xy, cull_r2, tx, ty, tile_w: int, tile_h: int):
     dx = torch.clamp(torch.maximum(tx_px - x, x - (tx_px + tile_w - 1)), min=0.0)
     dy = torch.clamp(torch.maximum(ty_px - y, y - (ty_px + tile_h - 1)), min=0.0)
     return dx * dx + dy * dy <= cull_r2[:, None]
+
+
+class TileBins(NamedTuple):
+    gauss_idx: torch.Tensor          # [T, K] int32 Gaussian index (0 if padded)
+    valid: torch.Tensor              # [T, K] bool
+    counts: torch.Tensor             # [T] int32 intersections (pre-cap)
+    overflow_tiles: torch.Tensor     # int32: tiles dropped by the budget
+    overflow_capacity: torch.Tensor  # int32: entries dropped by the capacity
+
+
+# bin_gaussians enumerates about this many instances at a time
+ENUM_BLOCK = 1 << 24
+
+
+def bin_gaussians(processed: Processed, tiles_x: int, tiles_y: int,
+                  max_tiles_per_gaussian: int, tile_capacity: int,
+                  tile_w: int = 16, tile_h: int = 16) -> TileBins:
+    """Padded per-tile tables: up to ``max_tiles_per_gaussian`` tile
+    instances per visible Gaussian in row-major rect order (culled to the
+    alpha >= 1/255 level set), ordered by (tile, depth) with ties by
+    Gaussian index, the first ``tile_capacity`` of each tile kept.
+
+    The JAX package sorts (tile, depth, index) triples stably; here one
+    int64 key ``tile · N + depth_rank`` (depth rank from a stable depth sort,
+    so ties keep index order) gives the same order. The ``[N, d]``
+    enumeration runs over blocks of Gaussians of about ``ENUM_BLOCK``
+    instances each, and each block keeps only its valid keys, so peak
+    memory follows the instances that exist, not N·d (one host
+    synchronisation per block); the kept keys are sorted at once."""
+    n = processed.xy.shape[0]
+    d = max_tiles_per_gaussian
+    num_tiles = tiles_x * tiles_y
+    dev = processed.xy.device
+    i32 = torch.int32
+
+    rect_min, rect_max = processed.rect_min, processed.rect_max
+    span_x = torch.clamp(rect_max[:, 0] - rect_min[:, 0], min=0)
+    span_y = torch.clamp(rect_max[:, 1] - rect_min[:, 1], min=0)
+    area = torch.where(processed.mask, span_x * span_y, 0)
+    overflow_tiles = torch.clamp(area - d, min=0).sum().to(i32)
+
+    depth_key = torch.where(processed.mask, processed.depth.detach(),
+                            torch.inf)
+    order = torch.sort(depth_key, stable=True).indices
+    rank = torch.empty_like(order)
+    rank[order] = torch.arange(n, device=dev)
+
+    j = torch.arange(d, dtype=i32, device=dev)[None, :]         # [1, d]
+    xy, cull_r2 = processed.xy.detach(), processed.cull_r2.detach()
+    rows = max(1, ENUM_BLOCK // max(d, 1))
+    parts = [torch.zeros(0, dtype=torch.int64, device=dev)]
+    for r0 in range(0, n, rows):
+        sl = slice(r0, r0 + rows)
+        span_x_safe = torch.clamp(span_x[sl], min=1)[:, None]
+        ty = rect_min[sl, 1, None] + torch.div(j, span_x_safe,
+                                               rounding_mode="floor")
+        tx = rect_min[sl, 0, None] + j % span_x_safe
+        live = j < torch.clamp(area[sl], max=d)[:, None]         # [rows, d]
+        live &= _tile_in_level_set(xy[sl], cull_r2[sl], tx, ty, tile_w,
+                                   tile_h)
+        keys = (ty * tiles_x + tx).long() * n + rank[sl, None]
+        parts.append(keys[live])
+        del tx, ty, live, keys
+    keys = torch.sort(torch.cat(parts)).values
+    del parts
+
+    bounds = torch.arange(num_tiles + 1, device=dev) * n
+    edges = torch.searchsorted(keys, bounds)                      # [T + 1]
+    starts = edges[:-1]
+    counts = (edges[1:] - starts).to(i32)
+
+    k = torch.arange(tile_capacity, device=dev)[None, :]
+    valid = k < torch.clamp(counts, max=tile_capacity)[:, None]   # [T, K]
+    take = torch.clamp(starts[:, None] + k, max=max(keys.numel() - 1, 0))
+    gauss_idx = (torch.where(valid, order[keys[take] % n], 0).to(i32)
+                 if keys.numel() else torch.zeros(valid.shape, dtype=i32,
+                                                  device=dev))
+    overflow_capacity = torch.clamp(counts - tile_capacity,
+                                    min=0).sum().to(i32)
+    return TileBins(gauss_idx=gauss_idx, valid=valid, counts=counts,
+                    overflow_tiles=overflow_tiles,
+                    overflow_capacity=overflow_capacity)
 
 
 class StreamBins(NamedTuple):

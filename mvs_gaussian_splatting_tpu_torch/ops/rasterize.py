@@ -1,14 +1,26 @@
-"""Tiled rasterizer, stream path: preprocess → bin → pack → composite →
-assemble.
+"""Tiled rasterizer: preprocess → bin → composite → assemble.
 
-Port of the stream path of the JAX package's ``ops/rasterize.py``. The
-packed attribute stream ``[16, CAP + 128]`` is built by one depth-order
-gather of a per-Gaussian table and one per-instance gather; the composite
-is :func:`ops.stream.composite_stream` (the CUDA kernel on a card, its plain
-version on the CPU).
+Port of the JAX package's ``ops/rasterize.py``, with its three composite
+backends:
 
-Not ported yet: the padded ``"jnp"`` and ``"pallas"`` backends (B4/B5 in
-``ROADMAP.md``).
+- ``"stream"`` (and ``"auto"``, on every device): the packed attribute
+  stream ``[16, CAP + 128]``, built by one depth-order gather of a
+  per-Gaussian table and one per-instance gather, composited by
+  :func:`ops.stream.composite_stream` (B1 / B2, or B3 under
+  ``fast_math``: the CUDA kernels on a card, their plain versions on the
+  CPU);
+- ``"pallas"``: padded ``[T, K]`` per-tile tables from
+  :func:`ops.binning.bin_gaussians`, composited by
+  :func:`ops.composite.composite_padded` (B4 / B5 on a card, their plain
+  versions on the CPU);
+- ``"jnp"``: the same tables composited by
+  :func:`ops.composite.composite_tiles_jnp`, the JAX package's own
+  non-Pallas operator, differentiated by autograd and recomputed per tile
+  batch in the backward (``jax.checkpoint`` there, ``torch.utils.checkpoint``
+  here). It runs on whatever device it is given: it is a backend of its
+  own, not a fallback for a kernel.
+
+``fast_math`` reaches the stream backend only, as in the JAX package.
 """
 
 from __future__ import annotations
@@ -17,7 +29,9 @@ from typing import NamedTuple, Optional
 
 import torch
 
-from .binning import auto_instance_cap, bin_instances_stream, rect_table
+from .binning import (TileBins, auto_instance_cap, bin_gaussians,
+                      bin_instances_stream, rect_table)
+from .composite import composite_padded, composite_tiles_jnp_batched
 from .preprocess import Processed
 from .stream import CHUNK, ROWS, composite_stream
 
@@ -28,7 +42,7 @@ class RasterConfig(NamedTuple):
     max_tiles_per_gaussian: int = 32
     tile_capacity: int = 512
     tile_batch: int = 64
-    backend: str = "auto"  # "stream" | "auto" (= "stream" on every device)
+    backend: str = "auto"  # "jnp" | "pallas" | "stream" | "auto" (= "stream")
     # Stream backend: packed instance slots. None = auto-size (see
     # binning.auto_instance_cap); shortfall is counted in overflow_capacity.
     instance_cap: Optional[int] = None
@@ -37,8 +51,8 @@ class RasterConfig(NamedTuple):
     # (nested prefixes, max_tiles_per_gaussian last). () = flat budget.
     tier_budgets: tuple = (4, 12)
     tier_fracs: tuple = (0.25, 0.1)
-    # Fast-math compositing (B3) is a training-time trade; the port
-    # composites in exact mode only so far.
+    # Fast-math compositing (stream backend, B3): a training-time trade of
+    # ~1e-3 pixel error; eval surfaces keep it off.
     fast_math: bool = False
     # Visible-prefix compaction: a static bound on the visible Gaussian
     # count. The order is truncated to it; dropped visible rows (the
@@ -163,25 +177,77 @@ def assemble_stream_output(tiles_out, final_T, bins, processed,
     return image, aux
 
 
+def gather_tables(processed: Processed, bins: TileBins):
+    """The padded backends' per-tile attribute tables, plane-major
+    [9, T, K] (x, y, conic a, b, c, opacity, r, g, b): one row gather of a
+    [N, 9] table whose backward is one scatter-add into it. A padded slot
+    holds zeros (the composites ignore it). Padded slots index Gaussian 0;
+    their zero gradients are scattered to spread rows instead, so the
+    scatter-add does not pile a million zero adds onto one row."""
+    t, k = bins.valid.shape
+    n = processed.xy.shape[0]
+    valid = bins.valid.reshape(-1)
+    spread = torch.arange(valid.numel(), device=valid.device) % max(n, 1)
+    rank = torch.where(valid, bins.gauss_idx.reshape(-1).long(), spread)
+    table = torch.cat([processed.xy, processed.conic,
+                       processed.opacity[:, None], processed.rgb], dim=1)
+    return _gather_inst_rows(table, rank, valid).reshape(9, t, k)
+
+
 def rasterize(processed: Processed, image_width: int, image_height: int,
               bg_color: torch.Tensor, config: RasterConfig = RasterConfig()):
-    """Full tiled rasterization. Returns (image [3, H, W], aux dict)."""
-    if config.backend not in ("auto", "stream"):
-        raise ValueError(f"backend {config.backend!r} is not ported; the "
-                         "port has the stream backend only")
-    if config.fast_math:
-        raise ValueError("fast_math compositing (B3 in ROADMAP.md) is not "
-                         "ported; composite in exact mode (--no-fast_math)")
+    """Full tiled rasterization. Returns (image [3, H, W], aux dict).
+
+    aux: radii [N] int32, final_T [H, W], the overflow counters and
+    tile_counts; the stream backend adds overflow_visible, n_mask_visible
+    and tier_need_counts."""
+    backend = "stream" if config.backend == "auto" else config.backend
+    if backend not in ("stream", "pallas", "jnp"):
+        raise ValueError(f"unknown backend {config.backend!r}: one of "
+                         "'auto', 'stream', 'pallas', 'jnp'")
     tile_w, tile_h = config.tile_w, config.tile_h
     tiles_x = -(-image_width // tile_w)
     tiles_y = -(-image_height // tile_h)
     num_tiles = tiles_x * tiles_y
-    bins, attrs = bin_and_pack_stream(processed, tiles_x, tiles_y, config)
-    tile_ids = torch.arange(num_tiles, dtype=torch.int32,
-                            device=attrs.device)
-    tiles_out, final_T = composite_stream(
-        attrs, bins.seg_start, bins.counts, bg_color.to(torch.float32),
-        tile_ids, tiles_x, tile_w, tile_h)
-    return assemble_stream_output(tiles_out, final_T, bins, processed,
-                                  tiles_x, tiles_y, tile_w, tile_h,
-                                  image_width, image_height)
+    bg = bg_color.to(torch.float32)
+    if backend == "stream":
+        bins, attrs = bin_and_pack_stream(processed, tiles_x, tiles_y, config)
+        tile_ids = torch.arange(num_tiles, dtype=torch.int32,
+                                device=attrs.device)
+        tiles_out, final_T = composite_stream(
+            attrs, bins.seg_start, bins.counts, bg, tile_ids, tiles_x, tile_w,
+            tile_h, config.fast_math)
+        return assemble_stream_output(tiles_out, final_T, bins, processed,
+                                      tiles_x, tiles_y, tile_w, tile_h,
+                                      image_width, image_height)
+
+    bins = bin_gaussians(processed, tiles_x, tiles_y,
+                         config.max_tiles_per_gaussian, config.tile_capacity,
+                         tile_w=tile_w, tile_h=tile_h)
+    cols = gather_tables(processed, bins)                         # [9, T, K]
+    if backend == "pallas":
+        # B4 walks each tile's prefix of min(counts, K) slots, which is
+        # where bin_gaussians puts its valid entries
+        tiles_out, final_T = composite_padded(
+            cols[:6], cols[6:9].permute(1, 2, 0).contiguous(),
+            bins.valid.to(torch.float32), bins.counts, bg, tiles_x, tile_w,
+            tile_h)
+        tiles_out = tiles_out.transpose(1, 2)
+    else:
+        rows = cols.permute(1, 2, 0)                              # [T, K, 9]
+        tiles_out, final_T = composite_tiles_jnp_batched(
+            rows[..., 0:2], rows[..., 2:5], rows[..., 6:9], rows[..., 5],
+            bins.valid, tiles_x, tile_w, tile_h, bg, config.tile_batch)
+    image = _assemble_image(tiles_out, tiles_x, tiles_y, tile_w, tile_h,
+                            image_width, image_height)
+    final_T_img = _assemble_image(final_T[:, None, :], tiles_x, tiles_y,
+                                  tile_w, tile_h, image_width,
+                                  image_height)[0]
+    aux = {
+        "radii": processed.radius,
+        "final_T": final_T_img,
+        "overflow_tiles": bins.overflow_tiles,
+        "overflow_capacity": bins.overflow_capacity,
+        "tile_counts": bins.counts,
+    }
+    return image, aux

@@ -3,7 +3,8 @@
 Port of the JAX package's ``ops/render.py``, with all its flags and its
 full output dict: render [3, H, W], radii [N] int32, visibility_filter [N]
 bool, final_T [H, W], the overflow counters, instance_load (tile instances
-this frame), n_mask_visible and tier_need_counts.
+this frame), n_mask_visible and tier_need_counts (0 and empty on the padded
+backends).
 """
 
 from __future__ import annotations
@@ -67,8 +68,12 @@ def render(camera: CameraView, image_width: int, image_height: int,
         "final_T": aux["final_T"],
         "overflow_tiles": aux["overflow_tiles"],
         "overflow_capacity": aux["overflow_capacity"],
-        "overflow_visible": aux["overflow_visible"],
+        # the stream backend's feedback for the loop's buckets; the padded
+        # backends have none
+        "overflow_visible": aux.get("overflow_visible", 0),
         "instance_load": aux["tile_counts"].sum(),
-        "n_mask_visible": aux["n_mask_visible"],
-        "tier_need_counts": aux["tier_need_counts"],
+        "n_mask_visible": aux.get("n_mask_visible", 0),
+        "tier_need_counts": aux.get(
+            "tier_need_counts",
+            torch.zeros((0,), dtype=torch.int32, device=image.device)),
     }

@@ -9,12 +9,20 @@ Binning lays all tile instances out in one packed attribute array
 9..15 are padding kept for the JAX package's layout.
 
 :func:`composite_stream` launches the hand-written CUDA kernel
-``csrc/stream_fwd.cu`` for CUDA tensors and runs
-:func:`composite_stream_plain` for CPU tensors. It is differentiable in
-``attrs`` and ``bg``: its backward is :func:`composite_stream_bwd`, which
-launches ``csrc/stream_bwd.cu`` for CUDA tensors and runs
-:func:`composite_stream_bwd_plain` for CPU tensors. Both composite in exact
-mode only; the fast-math mode (B3 in ``ROADMAP.md``) is not ported.
+``csrc/stream_fwd.cu`` for CUDA tensors and runs its plain version for CPU
+tensors. It is differentiable in ``attrs`` and ``bg``: its backward is
+:func:`composite_stream_bwd`, which launches ``csrc/stream_bwd.cu`` or
+``csrc/stream_bwd_fast.cu`` for CUDA tensors and runs its plain version for
+CPU tensors. Two modes, as in the JAX package:
+
+- exact (``fast=False``, B1 / B2): plain versions
+  :func:`composite_stream_plain` / :func:`composite_stream_bwd_plain`;
+- fast math (``fast=True``, B3, ``RasterConfig.fast_math``): plain
+  versions :func:`composite_stream_fast_plain` /
+  :func:`composite_stream_bwd_fast_plain`, which follow the JAX package's
+  fast formulas (log-space transmittance, the moment-form pixel sums) in
+  f32. The fast kernels are held to them within the JAX package's
+  fast-mode contract (``tests/test_fast_math.py``), not to the bit.
 """
 
 from __future__ import annotations
@@ -25,10 +33,12 @@ import torch
 ROWS = 16
 CHUNK = 128   # slack columns at the tail of the stream (JAX layout)
 
-# Kernel launches: the forward by composite_stream, the backward by
-# composite_stream_bwd (the CPU path counts neither).
+# Kernel launches, per kernel: B1 and B3f by composite_stream, B2 and B3b
+# by composite_stream_bwd (the CPU path counts none).
 launches = 0
 bwd_launches = 0
+fast_launches = 0
+fast_bwd_launches = 0
 
 
 def _check(attrs, seg_start, counts, bg, tile_ids, tile_w, tile_h):
@@ -56,12 +66,13 @@ def _check(attrs, seg_start, counts, bg, tile_ids, tile_w, tile_h):
 
 
 def _composite_fwd(attrs, seg_start, counts, bg, tile_ids, tiles_x: int,
-                   tile_w: int, tile_h: int):
-    global launches
+                   tile_w: int, tile_h: int, fast: bool = False):
+    global launches, fast_launches
     _check(attrs, seg_start, counts, bg, tile_ids, tile_w, tile_h)
     if attrs.device.type == "cpu":
-        return composite_stream_plain(attrs, seg_start, counts, bg, tile_ids,
-                                      tiles_x, tile_w, tile_h)
+        plain = composite_stream_fast_plain if fast else composite_stream_plain
+        return plain(attrs, seg_start, counts, bg, tile_ids, tiles_x, tile_w,
+                     tile_h)
     if attrs.device.type != "cuda":
         raise ValueError(f"no stream kernel for device {attrs.device}")
     from .. import kernels
@@ -71,27 +82,34 @@ def _composite_fwd(attrs, seg_start, counts, bg, tile_ids, tiles_x: int,
     final_t = torch.empty((t, p), dtype=torch.float32, device=attrs.device)
     if t == 0:
         return out, final_t
+    lib = kernels.library()
+    name = "gs_stream_fwd_fast" if fast else "gs_stream_fwd"
     with torch.cuda.device(attrs.device):
-        err = kernels.library().gs_stream_fwd(
+        err = getattr(lib, name)(
             attrs.data_ptr(), attrs.shape[1], seg_start.data_ptr(),
             counts.data_ptr(), tile_ids.data_ptr(), bg.data_ptr(),
             out.data_ptr(), final_t.data_ptr(), t, tiles_x, tile_w, tile_h,
             torch.cuda.current_stream(attrs.device).cuda_stream)
     if err != 0:
-        raise RuntimeError(f"gs_stream_fwd launch failed: CUDA error {err}")
-    launches += 1
+        raise RuntimeError(f"{name} launch failed: CUDA error {err}")
+    if fast:
+        fast_launches += 1
+    else:
+        launches += 1
     return out, final_t
 
 
 class _StreamComposite(torch.autograd.Function):
-    """B1 forward, B2 backward; gradients flow to ``attrs`` and ``bg``."""
+    """B1 / B3f forward, B2 / B3b backward; gradients flow to ``attrs`` and
+    ``bg``."""
 
     @staticmethod
     def forward(ctx, attrs, seg_start, counts, bg, tile_ids, tiles_x, tile_w,
-                tile_h):
+                tile_h, fast):
         out, final_t = _composite_fwd(attrs, seg_start, counts, bg, tile_ids,
-                                      tiles_x, tile_w, tile_h)
+                                      tiles_x, tile_w, tile_h, fast)
         ctx.geometry = (tiles_x, tile_w, tile_h)
+        ctx.fast = fast
         ctx.save_for_backward(attrs, seg_start, counts, bg, tile_ids, out,
                               final_t)
         return out, final_t
@@ -102,18 +120,19 @@ class _StreamComposite(torch.autograd.Function):
             ctx.saved_tensors
         gattrs, g_bg = composite_stream_bwd(
             attrs, seg_start, counts, bg, tile_ids, *ctx.geometry, out,
-            final_t, g_out.contiguous(), g_tfin.contiguous())
-        return gattrs, None, None, g_bg, None, None, None, None
+            final_t, g_out.contiguous(), g_tfin.contiguous(), fast=ctx.fast)
+        return gattrs, None, None, g_bg, None, None, None, None, None
 
 
 def composite_stream(attrs, seg_start, counts, bg, tile_ids, tiles_x: int,
-                     tile_w: int, tile_h: int):
+                     tile_w: int, tile_h: int, fast: bool = False):
     """attrs [16, CAP+128] f32; seg_start/counts/tile_ids [T] i32 (tile_ids
     is the GLOBAL tile id of each local tile: it places the pixel grid);
     bg [3] f32 → (out [T, P, 3], final_T [T, P]), P = tile_w·tile_h.
-    Differentiable in ``attrs`` and ``bg`` (see :func:`composite_stream_bwd`)."""
+    Differentiable in ``attrs`` and ``bg`` (see :func:`composite_stream_bwd`).
+    ``fast``: the fast-math mode (B3), as ``RasterConfig.fast_math``."""
     return _StreamComposite.apply(attrs, seg_start, counts, bg, tile_ids,
-                                  tiles_x, tile_w, tile_h)
+                                  tiles_x, tile_w, tile_h, fast)
 
 
 def _check_bwd(t, p, out, final_t, g_out, g_tfin):
@@ -130,7 +149,7 @@ def _check_bwd(t, p, out, final_t, g_out, g_tfin):
 
 def composite_stream_bwd(attrs, seg_start, counts, bg, tile_ids,
                          tiles_x: int, tile_w: int, tile_h: int, out, final_t,
-                         g_out, g_tfin):
+                         g_out, g_tfin, fast: bool = False):
     """Gradient of :func:`composite_stream`: the forward's inputs, its saved
     outputs (out [T, P, 3], final_T [T, P]) and their cotangents →
     (gattrs [16, CAP+128], g_bg [3]).
@@ -138,35 +157,43 @@ def composite_stream_bwd(attrs, seg_start, counts, bg, tile_ids,
     gattrs is zero outside this call's segments, in the entries a tile never
     reaches before its early exit, and in rows 9..15. g_bg = Σ g_out·final_T
     is one reduction outside the kernel, as in the JAX package."""
-    global bwd_launches
+    global bwd_launches, fast_bwd_launches
     _check(attrs, seg_start, counts, bg, tile_ids, tile_w, tile_h)
     t, p = seg_start.shape[0], tile_w * tile_h
     _check_bwd(t, p, out, final_t, g_out, g_tfin)
     if attrs.device.type == "cpu":
-        return composite_stream_bwd_plain(attrs, seg_start, counts, bg,
-                                          tile_ids, tiles_x, tile_w, tile_h,
-                                          out, final_t, g_out, g_tfin)
+        plain = (composite_stream_bwd_fast_plain if fast
+                 else composite_stream_bwd_plain)
+        return plain(attrs, seg_start, counts, bg, tile_ids, tiles_x, tile_w,
+                     tile_h, out, final_t, g_out, g_tfin)
     if attrs.device.type != "cuda":
         raise ValueError(f"no stream kernel for device {attrs.device}")
     if p % 32:
         raise ValueError(f"tile_w*tile_h = {p}: the backward kernel reduces "
                          "over whole warps, so it must be a multiple of 32")
+    if fast and max(tile_w, tile_h) > 64:
+        raise ValueError(f"tile {tile_w}x{tile_h}: the fast backward keeps "
+                         "pixel moments exact in TF32 only for sides <= 64")
     from .. import kernels
 
     gattrs = torch.zeros_like(attrs)
     g_bg = torch.einsum("tpc,tp->c", g_out, final_t)
     if t == 0:
         return gattrs, g_bg
+    name = "gs_stream_bwd_fast" if fast else "gs_stream_bwd"
     with torch.cuda.device(attrs.device):
-        err = kernels.library().gs_stream_bwd(
+        err = getattr(kernels.library(), name)(
             attrs.data_ptr(), attrs.shape[1], seg_start.data_ptr(),
             counts.data_ptr(), tile_ids.data_ptr(), out.data_ptr(),
             final_t.data_ptr(), g_out.data_ptr(), g_tfin.data_ptr(),
             gattrs.data_ptr(), t, tiles_x, tile_w, tile_h,
             torch.cuda.current_stream(attrs.device).cuda_stream)
     if err != 0:
-        raise RuntimeError(f"gs_stream_bwd launch failed: CUDA error {err}")
-    bwd_launches += 1
+        raise RuntimeError(f"{name} launch failed: CUDA error {err}")
+    if fast:
+        fast_bwd_launches += 1
+    else:
+        bwd_launches += 1
     return gattrs, g_bg
 
 
@@ -313,11 +340,148 @@ def composite_stream_bwd_plain(attrs, seg_start, counts, bg, tile_ids,
     return gattrs, g_bg
 
 
+def _tile_origin(tile_ids, tiles_x: int, tile_w: int, tile_h: int):
+    """[T, 1] float32 tile centres (ox, oy) of the fast backward's moment
+    form: the tile's first pixel plus half its size (integer division)."""
+    tid = tile_ids.long()
+    ox = (tid % tiles_x) * tile_w + tile_w // 2
+    oy = (tid // tiles_x) * tile_h + tile_h // 2
+    return (ox.to(torch.float32)[:, None], oy.to(torch.float32)[:, None])
+
+
+def _fast_replay(attrs, seg_start, counts, tile_ids, tiles_x: int,
+                 tile_w: int, tile_h: int):
+    """Yields, entry by entry, the fast mode's per-(tile, pixel) terms of
+    the JAX package's fast forward (``_chunk_include_lanes(fast=True)``):
+    the transmittance as exp of the running sum of log(1 − α) over the
+    contributing entries, ``include = contrib ∧ T_incl ≥ 1e-4`` (T_incl never
+    rises, so no done flag), ``T_excl = T_incl / (1 − α)``. Each item is
+    (k, col, in_seg, a [9, T, 1], dx, dy, g, alpha, include, t_incl, t_excl,
+    live) with ``live`` the pixels still above 1e-4 before entry k."""
+    dev = attrs.device
+    f32 = torch.float32
+    px, py = _pixel_grid(tile_ids, tiles_x, tile_w, tile_h)
+    max_alpha = torch.tensor(0.99, dtype=f32, device=dev)
+    width = attrs.shape[1]
+    start = seg_start.long()
+    cnt = torch.minimum(counts.long(), (width - start).clamp(min=0))
+    log_t = torch.zeros(px.shape, dtype=f32, device=dev)
+    log_min = float(np.log(np.float32(1e-4)))
+    steps = int(cnt.max()) if cnt.numel() else 0
+    for k in range(steps):
+        in_seg = k < cnt                                        # [T]
+        live = in_seg[:, None] & (log_t >= log_min)
+        if k % 32 == 0 and not bool(live.any()):
+            break
+        col = (start + k).clamp(max=width - 1)
+        a = attrs[:9, col][:, :, None]                          # [9, T, 1]
+        dx = a[0] - px
+        dy = a[1] - py
+        power = -0.5 * (a[2] * dx * dx + a[4] * dy * dy) - a[3] * dx * dy
+        g = torch.exp(power)
+        alpha = torch.minimum(a[5] * g, max_alpha)
+        contrib = (in_seg[:, None] & (power <= 0.0)
+                   & (alpha >= 1.0 / 255.0))
+        one_minus = torch.where(contrib, 1.0 - alpha, 1.0)
+        log_t = log_t + torch.log(one_minus)
+        t_incl = torch.exp(log_t)
+        include = contrib & (t_incl >= 1e-4)
+        yield (k, col, in_seg, a, dx, dy, g, alpha, include, t_incl,
+               t_incl / one_minus, live)
+
+
+def composite_stream_fast_plain(attrs, seg_start, counts, bg, tile_ids,
+                                tiles_x: int, tile_w: int, tile_h: int, *,
+                                count_visits: bool = False):
+    """Plain PyTorch version of :func:`composite_stream` with ``fast=True``
+    (B3f), same signature: the JAX package's fast forward in f32, entry by
+    entry, vectorised over tiles and pixels. ``final_T`` is min(1, the
+    smallest included T_incl), as the TPU kernel reduces it.
+    ``count_visits=True`` also returns the (entry, pixel) pairs visited, as
+    :func:`composite_stream_plain` counts them."""
+    t, p = seg_start.shape[0], tile_w * tile_h
+    acc = torch.zeros((t, p, 3), dtype=torch.float32, device=attrs.device)
+    tmin = torch.full((t, p), torch.inf, device=attrs.device)
+    visits = torch.zeros((t, p), dtype=torch.int64, device=attrs.device)
+    for (_, _, _, a, _, _, _, alpha, include, t_incl, t_excl,
+         live) in _fast_replay(attrs, seg_start, counts, tile_ids, tiles_x,
+                               tile_w, tile_h):
+        w = torch.where(include, alpha * t_excl, 0.0)
+        acc = acc + w[:, :, None] * a[6:9, :, 0].T[:, None, :]
+        tmin = torch.minimum(tmin, torch.where(include, t_incl, torch.inf))
+        visits += live
+    final_t = torch.clamp(tmin, max=1.0)
+    out = acc + final_t[:, :, None] * bg
+    if count_visits:
+        return out, final_t, int(visits.amax(dim=1).sum()) * p if t else 0
+    return out, final_t
+
+
+def composite_stream_bwd_fast_plain(attrs, seg_start, counts, bg, tile_ids,
+                                    tiles_x: int, tile_w: int, tile_h: int,
+                                    out, final_t, g_out, g_tfin, *,
+                                    count_visits: bool = False):
+    """Plain PyTorch version of :func:`composite_stream_bwd` with
+    ``fast=True`` (B3b), same signature: the JAX package's fast backward in
+    f32. It replays :func:`composite_stream_fast_plain`, forms each entry's
+    ``dpower`` and ``w`` per pixel, and reduces them over the tile's pixels
+    as the moment form does (``stream.py:362-401``): six moments
+    Σ dpower·{1, pxl, pyl, pxl², pxl·pyl, pyl²} around the tile centre and
+    Σ g_out·w, then the closed-form per-entry gradients."""
+    t = seg_start.shape[0]
+    px, py = _pixel_grid(tile_ids, tiles_x, tile_w, tile_h)
+    ox, oy = _tile_origin(tile_ids, tiles_x, tile_w, tile_h)
+    pxl, pyl = px - ox, py - oy                                  # [T, P]
+    phi = torch.stack([torch.ones_like(pxl), pxl, pyl, pxl * pxl,
+                       pxl * pyl, pyl * pyl])                    # [6, T, P]
+    g_dot_out = (g_out * out).sum(-1)
+    tfin_term = g_tfin * final_t
+    gattrs = torch.zeros_like(attrs)
+    prefix = torch.zeros_like(final_t)
+    visits = torch.zeros(final_t.shape, dtype=torch.int64, device=attrs.device)
+    for (_, col, in_seg, a, _, _, g, alpha, include, _, t_excl,
+         live) in _fast_replay(attrs, seg_start, counts, tile_ids, tiles_x,
+                               tile_w, tile_h):
+        w = torch.where(include, alpha * t_excl, 0.0)
+        g_dot_rgb = sum(g_out[..., c] * a[6 + c] for c in range(3))
+        prefix = prefix + w * g_dot_rgb
+        one_minus = torch.where(include, 1.0 - alpha, 1.0)
+        dalpha = torch.where(
+            include, g_dot_rgb * t_excl - (g_dot_out - prefix) / one_minus
+            - tfin_term / one_minus, 0.0)
+        op = a[5]
+        dpower = torch.where(include & (op * g < 0.99), dalpha * op * g, 0.0)
+        s0, s1x, s1y, s2xx, s2xy, s2yy = (phi * dpower).sum(-1)  # [T] each
+        xl, yl = a[0, :, 0] - ox[:, 0], a[1, :, 0] - oy[:, 0]
+        ca, cb, cc, op = a[2, :, 0], a[3, :, 0], a[4, :, 0], op[:, 0]
+        mx = xl * s0 - s1x
+        my = yl * s0 - s1y
+        rows = torch.stack([
+            -(ca * mx + cb * my),
+            -(cc * my + cb * mx),
+            -0.5 * (xl * mx - xl * s1x + s2xx),
+            -(xl * my - yl * s1x + s2xy),
+            -0.5 * (yl * my - yl * s1y + s2yy),
+            torch.where(op > 0.0, s0 / torch.where(op > 0.0, op, 1.0), 0.0),
+            *(torch.sum(g_out[..., c] * w, -1) for c in range(3))])  # [9, T]
+        gattrs[:9, col[in_seg]] = rows[:, in_seg]
+        visits += live
+    g_bg = torch.einsum("tpc,tp->c", g_out, final_t)
+    if count_visits:
+        p = tile_w * tile_h
+        return gattrs, g_bg, int(visits.amax(dim=1).sum()) * p if t else 0
+    return gattrs, g_bg
+
+
 def random_stream(seed: int, tiles_x: int = 12, tiles_y: int = 8,
-                  tile_w: int = 16, tile_h: int = 16, long_len: int = 2700):
+                  tile_w: int = 16, tile_h: int = 16, long_len: int = 2700,
+                  far: float = 0.0):
     """A random packed stream as numpy arrays, for checking the kernel
     against its plain version: empty, 1-entry, short and long (> 10 batches
     of 256) segments; every third tile translucent, the rest saturating.
+    ``far``: the share of entries made far-centred wide splats (centres 150
+    to 400 pixels from their tile, standard deviations 100 to 250 pixels),
+    where the fast backward's moment form cancels most.
 
     Returns dict(attrs, seg_start, counts, tile_ids, bg) plus the geometry
     (tiles_x, tile_w, tile_h)."""
@@ -346,6 +510,19 @@ def random_stream(seed: int, tiles_x: int = 12, tiles_y: int = 8,
     attrs[5, :total] = np.where(dim, rng.uniform(0.002, 0.05, total),
                                 rng.uniform(0.05, 1.0, total))
     attrs[6:9, :total] = rng.uniform(0, 1, (3, total))
+    if far:
+        pick = np.flatnonzero(rng.rand(total) < far)
+        ang = rng.uniform(0, 2 * np.pi, len(pick))
+        dist = rng.uniform(150, 400, len(pick))
+        attrs[0, pick] = cx[pick] + dist * np.cos(ang)
+        attrs[1, pick] = cy[pick] + dist * np.sin(ang)
+        sx, sy = rng.uniform(100, 250, (2, len(pick)))
+        rho = rng.uniform(-0.5, 0.5, len(pick))
+        det = (sx * sy) ** 2 * (1 - rho ** 2)
+        attrs[2, pick] = sy ** 2 / det
+        attrs[3, pick] = -rho * sx * sy / det
+        attrs[4, pick] = sx ** 2 / det
+        attrs[5, pick] = rng.uniform(0.3, 0.9, len(pick))
     return dict(attrs=attrs, seg_start=seg_start.astype(np.int32),
                 counts=counts.astype(np.int32),
                 tile_ids=np.arange(t, dtype=np.int32),

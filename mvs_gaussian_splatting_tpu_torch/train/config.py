@@ -51,19 +51,17 @@ class PipelineConfig:
     detach: bool = False
     # TPU-specific knobs (no reference analog)
     backend: str = "auto"            # rasterizer composite backend
-    tile_w: int = 16                 # raster tile geometry (32x16 is the
-    tile_h: int = 16                 # fastest 1080p config on v5e)
+    tile_w: int = 16                 # raster tile geometry (the flagship
+    tile_h: int = 16                 # recipe trains on 32x16)
     tile_capacity: int = 1024
     max_tiles_per_gaussian: int = 128
     tile_batch: int = 128
     spec_capacity: int = 4096        # speculation-block slots (grow mode)
-    # MXU log-space compositing scans: the TRAIN default since round 3 —
-    # 12.26 vs 9.59 steps/s at 1080p with reference-scale PSNR within noise
-    # of exact (runs/fastval vs runs/refscale3: 19.89/21.74/22.64/23.21 vs
-    # 19.87/21.74/22.58/23.18 at 1K/3K/5K/7K). Evaluation and the offline
-    # render/metrics pipeline always composite exact (train/loop.py eval_cfg,
-    # cli/render.py). --no-fast_math / fast_math=False restores exact
-    # training.
+    # Fast-math compositing (B3): the TRAIN default, as in the JAX package,
+    # whose runs showed reference-scale PSNR within noise of exact.
+    # Evaluation and the offline render/metrics pipeline always composite
+    # exact (train/loop.py eval_config, cli/render.py). --no-fast_math /
+    # fast_math=False restores exact training.
     fast_math: bool = True
     # Visible-prefix compaction (round 4, RasterConfig.visible_cap): bucket
     # the per-camera VISIBLE count and truncate the depth order to it, so

@@ -5,7 +5,9 @@ the train step: camera sampling, SH warm-up, learning-rate schedule,
 densify / prune / opacity-reset cadence, capacity growth, the render-slice
 and instance-cap buckets, eval sweeps, the divergence guard, checkpoints.
 
-Not ported: the fast-math composite (B3), the multi-device modes
+Training composites in the configuration's mode: fast math by default
+(B3), exact with ``fast_math=False``; every eval is exact
+(:func:`eval_config`). Not ported: the multi-device modes
 (``data_parallel`` / ``tile_parallel`` / ``gauss_parallel`` and their grid,
 A17), grow mode (A12) and the network viewer (A14). Each raises.
 """
@@ -77,13 +79,8 @@ def adaptive_eval_layout(params, aux, cameras, eval_cfg: RasterConfig,
     return (d, tuple(budgets), tuple(fracs)), bound + (-bound) % 128
 
 
-def _refuse_unported(model_cfg: ModelConfig, pipe_cfg: PipelineConfig,
+def _refuse_unported(model_cfg: ModelConfig,
                      run_cfg: TrainRunConfig) -> None:
-    if pipe_cfg.fast_math:
-        raise ValueError(
-            "fast_math training composites through the fast-math kernels "
-            "(B3 in ROADMAP.md), which are not ported yet; train in exact "
-            "mode with --no-fast_math (PipelineConfig(fast_math=False))")
     for flag in ("data_parallel", "tile_parallel", "gauss_parallel"):
         if getattr(run_cfg, flag):
             raise NotImplementedError(f"{flag} training is not ported "
@@ -104,7 +101,7 @@ def train(model_cfg: ModelConfig, opt_cfg: OptimizationConfig,
     ``profile_dir``: write a torch.profiler trace of this run's iterations
     100-120 (counted from the checkpoint's iteration on a resume) there as
     ``trace.json``."""
-    _refuse_unported(model_cfg, pipe_cfg, run_cfg)
+    _refuse_unported(model_cfg, run_cfg)
     device = torch.device(device)
     seed_everything(run_cfg.seed)
     if scene is None:
@@ -141,12 +138,13 @@ def train(model_cfg: ModelConfig, opt_cfg: OptimizationConfig,
     eval_render = make_eval_render(eval_cfg)
     eval_metrics = make_eval_metrics(eval_cfg)
     render_n = _render_bucket(int(num_alive(aux)), params.xyz.shape[0])
-    # measured-load instance-cap bucket: 0 = the a-priori auto heuristic;
-    # re-bucketed from metrics.instance_load at every densify round, grown
-    # at once on an overflow signal
+    # measured-load instance-cap bucket (stream backend only): 0 = the
+    # a-priori auto heuristic; re-bucketed from metrics.instance_load at
+    # every densify round, grown at once on an overflow signal
+    stream_caps = raster_cfg.backend in ("stream", "auto")
     inst_cap = 0
     # visible-prefix compaction bucket, grown at once on overflow_visible
-    use_vis = pipe_cfg.visible_compaction
+    use_vis = pipe_cfg.visible_compaction and stream_caps
     vis_cap = 0
     vis_max = 0
 
@@ -244,13 +242,14 @@ def train(model_cfg: ModelConfig, opt_cfg: OptimizationConfig,
                     log_fn(f"[ITER {iteration}] render slice "
                            f"{render_n} → {new_rn}")
                     render_n = new_rn
-                new_ic = _instance_bucket(int(metrics.instance_load),
-                                          render_n or params.xyz.shape[0],
-                                          raster_cfg)
-                if new_ic != inst_cap:
-                    log_fn(f"[ITER {iteration}] instance cap "
-                           f"{inst_cap or 'auto'} → {new_ic or 'auto'}")
-                    inst_cap = new_ic
+                if stream_caps:
+                    new_ic = _instance_bucket(int(metrics.instance_load),
+                                              render_n or params.xyz.shape[0],
+                                              raster_cfg)
+                    if new_ic != inst_cap:
+                        log_fn(f"[ITER {iteration}] instance cap "
+                               f"{inst_cap or 'auto'} → {new_ic or 'auto'}")
+                        inst_cap = new_ic
                 if use_vis and vis_max > 0:
                     new_vc = _render_bucket(vis_max,
                                             render_n or params.xyz.shape[0],
@@ -291,7 +290,7 @@ def train(model_cfg: ModelConfig, opt_cfg: OptimizationConfig,
             if nf_now > 0:
                 log_fn(f"[ITER {iteration}] WARNING: {int(nf_now)} rows had "
                        "non-finite gradients (zeroed by scrub_grads)")
-            if oc_now > 0:
+            if stream_caps and oc_now > 0:
                 # cap too tight: grow to the bucket covering the spilled load
                 grown = _instance_bucket(int(il_now + oc_now),
                                          render_n or params.xyz.shape[0],
@@ -325,7 +324,7 @@ def train(model_cfg: ModelConfig, opt_cfg: OptimizationConfig,
         if eval_now:
             _report(iteration, eval_state, scene, eval_cfg, eval_metrics,
                     eval_render, bg, active_sh, history, tb_writer,
-                    model_cfg, log_fn, device)
+                    model_cfg, log_fn, device, stream_caps)
             ps_now = history["psnr_test"].get(iteration)
             # divergence guard: an unattended run stops and checkpoints
             # instead of training on garbage
@@ -375,9 +374,10 @@ def train(model_cfg: ModelConfig, opt_cfg: OptimizationConfig,
 
 def _report(iteration, eval_state, scene, eval_cfg, eval_metrics,
             eval_render, bg, active_sh, history, tb_writer, model_cfg,
-            log_fn, device) -> None:
+            log_fn, device, stream_caps: bool) -> None:
     """The training report: L1 and PSNR over the full test set and 5 fixed
-    train views, each split on its own clip-free layout; shape
+    train views, each split on its own clip-free layout (stream backend;
+    the padded backends evaluate on ``eval_cfg`` as it is); shape
     diagnostics; the side-by-side validation image."""
     e_params, e_aux, e_rn = eval_state
     train_all = scene.get_train_cameras()
@@ -385,11 +385,14 @@ def _report(iteration, eval_state, scene, eval_cfg, eval_metrics,
                ("train", [train_all[idx % len(train_all)]
                           for idx in range(5, 30, 5)] if train_all else [])]
     test_layout, test_cap = None, 0
+    e_layout, e_cap = None, 0
     for split, cams in configs:
         if not cams:
             continue
-        e_layout, e_cap = adaptive_eval_layout(
-            e_params, e_aux, cams, eval_cfg, e_rn or e_params.xyz.shape[0])
+        if stream_caps:
+            e_layout, e_cap = adaptive_eval_layout(
+                e_params, e_aux, cams, eval_cfg,
+                e_rn or e_params.xyz.shape[0])
         l1v, ps = evaluate_split(eval_metrics, e_params, e_aux, cams, bg,
                                  active_sh, device, render_n=e_rn,
                                  instance_cap=e_cap, tier_layout=e_layout)

@@ -1,10 +1,11 @@
 """The training step: render → loss → backward → Adam → statistics.
 
 Port of the JAX package's ``train/step.py``. PyTorch runs it eagerly: the
-render's backward goes through the stream composite's backward kernel
-(``ops/stream.py``, B2), the pack gather's scatter-add and preprocess. The
-viewspace-gradient densification statistic comes out of the same backward
-pass, as the gradient of a zero ``ndc_offset`` input.
+render's backward goes through the composite's backward kernel (B3b in
+fast-math mode, B2 in exact mode, B5 on the padded backend), the gather's
+scatter-add and preprocess. The viewspace-gradient densification statistic
+comes out of the same backward pass, as the gradient of a zero
+``ndc_offset`` input.
 
 Three profiler ranges mark the step's phases in a ``torch.profiler`` trace
 (``train/loop.py``'s ``profile_dir``): ``train_step/forward`` (render and

@@ -1,5 +1,7 @@
-"""The port's stream composite wrappers (ops/stream.py) and their CUDA
-kernels (csrc/stream_fwd.cu, csrc/stream_bwd.cu).
+"""The port's composite wrappers (ops/stream.py, ops/composite.py) and
+their CUDA kernels: B1 and B3f (csrc/stream_fwd.cu), B2 (csrc/stream_bwd.cu),
+B3b (csrc/stream_bwd_fast.cu), B4 (csrc/padded_fwd.cu) and B5
+(csrc/padded_bwd.cu).
 
 This file imports neither JAX nor the JAX package, so the tests marked
 ``gpu`` also run on a machine with a card and no JAX:
@@ -14,6 +16,13 @@ the last bits of exp, and a flipped 1/255 or 1e-4 threshold). The backward
 kernel is held to ``composite_stream_bwd_plain`` per attribute row within
 1e-5 of that row's largest magnitude: the two replay the forward with the
 same rounding and differ only in the order of the sum over a tile's pixels.
+The fast-math kernels (B3f, B3b) are held to their plain versions within
+the JAX package's fast-mode contract (``tests/test_fast_math.py``): 2e-3
+max abs on image and final_T, 5e-3 of each row's largest magnitude on
+gradients; the plain versions take the log-space route of the TPU kernel,
+the kernels a per-pixel loop with __expf and TF32 tensor-core moment sums.
+B4 is held to ``composite_padded_plain`` within 2e-4 and B5 to
+``composite_padded_bwd_plain`` within 1e-5 per plane, as B1 and B2.
 """
 
 import ast
@@ -23,7 +32,8 @@ import numpy as np
 import pytest
 import torch
 
-from mvs_gaussian_splatting_tpu_torch.ops import stream
+from mvs_gaussian_splatting_tpu_torch.ops import composite, stream
+from mvs_gaussian_splatting_tpu_torch.ops.composite import random_tables
 from mvs_gaussian_splatting_tpu_torch.ops.stream import (
     composite_stream, composite_stream_plain, random_stream)
 
@@ -31,6 +41,8 @@ torch.set_num_threads(1)
 
 TOL = 2e-4
 BWD_REL = 1e-5
+FAST_TOL = 2e-3      # the JAX package's fast-mode contract
+FAST_REL = 5e-3
 
 
 def synthetic_stream(seed, long_len=2700):
@@ -364,3 +376,220 @@ class TestBackwardKernel:
         assert bool(torch.isfinite(m.loss)) and int(m.nonfinite_grad_rows) == 0
         assert float((new.xyz - params.xyz).abs().max()) > 0
         assert float(aux2.denom.sum()) > 0
+
+
+def _refuse(*args, **kwargs):
+    raise AssertionError("a CUDA tensor reached a plain version")
+
+
+def _small_camera(device, w, h):
+    from mvs_gaussian_splatting_tpu_torch.ops.preprocess import CameraView
+    from mvs_gaussian_splatting_tpu_torch.utils import graphics
+    fovx = 1.0
+    fovy = graphics.focal2fov(graphics.fov2focal(fovx, w), h)
+    proj = graphics.projection_matrix(0.01, 100.0, fovx, fovy)
+    f32 = dict(dtype=torch.float32, device=device)
+    return CameraView(torch.eye(4, **f32), torch.tensor(proj, **f32),
+                      torch.zeros(3, **f32),
+                      torch.tensor(np.tan(fovx / 2), **f32),
+                      torch.tensor(np.tan(fovy / 2), **f32))
+
+
+def _one_train_step(device, raster_cfg):
+    """One make_train_step step on a random 300-point scene at 96×64."""
+    from mvs_gaussian_splatting_tpu_torch.models.gaussians import \
+        init_from_pcd
+    from mvs_gaussian_splatting_tpu_torch.train.config import \
+        OptimizationConfig
+    from mvs_gaussian_splatting_tpu_torch.train.optim import adam_init
+    from mvs_gaussian_splatting_tpu_torch.train.step import make_train_step
+    rng = np.random.RandomState(1)
+    n, w, h = 300, 96, 64
+    z = rng.uniform(2, 6, n)
+    pts = np.stack([rng.uniform(-0.8, 0.8, n) * z,
+                    rng.uniform(-0.6, 0.6, n) * z, z], -1)
+    params, aux = init_from_pcd(pts.astype(np.float32),
+                                rng.rand(n, 3).astype(np.float32), 512,
+                                device=device)
+    step = make_train_step(OptimizationConfig(), raster_cfg, 5.0)
+    gt = torch.rand((3, h, w), generator=torch.Generator(
+        device=device).manual_seed(0), device=device)
+    new, _, aux2, m = step(params, adam_init(params), aux,
+                           _small_camera(device, w, h), gt,
+                           torch.zeros(3, device=device), 1, True, width=w,
+                           height=h, sh_degree=0)
+    torch.cuda.synchronize()
+    assert bool(torch.isfinite(m.loss)) and int(m.nonfinite_grad_rows) == 0
+    assert float((new.xyz - params.xyz).abs().max()) > 0
+    assert float(aux2.denom.sum()) > 0
+
+
+def _launch_counts():
+    return (stream.launches, stream.bwd_launches, stream.fast_launches,
+            stream.fast_bwd_launches, composite.launches,
+            composite.bwd_launches)
+
+
+@pytest.mark.gpu
+class TestFastKernels:
+    @pytest.mark.parametrize("far", [0.0, 0.2])
+    @pytest.mark.parametrize("geometry", ["16x16", "32x16"])
+    def test_kernels_match_plain(self, cuda, geometry, far):
+        tw = 16 if geometry == "16x16" else 32
+        s = random_stream(5, tiles_x=6, tiles_y=5, tile_w=tw, tile_h=16,
+                          far=far)
+        a = _args(s, cuda)
+        before = _launch_counts()
+        out, tfin = composite_stream(*a, fast=True)
+        g_out, g_tfin = (c.to(cuda) for c in _cotangents(s, 5))
+        got, got_bg = stream.composite_stream_bwd(*a, out, tfin, g_out,
+                                                  g_tfin, fast=True)
+        torch.cuda.synchronize()
+        after = _launch_counts()
+        assert [x - y for x, y in zip(after, before)] == [0, 0, 1, 1, 0, 0]
+        ref, rtfin = stream.composite_stream_fast_plain(*a)
+        gap = max(float((out - ref).abs().max()),
+                  float((tfin - rtfin).abs().max()))
+        want, want_bg = stream.composite_stream_bwd_fast_plain(
+            *a, ref, rtfin, g_out, g_tfin)
+        gaps = bwd_gaps(got, want)
+        print(f"{geometry} far {far}: B3f vs plain {gap:.2e}; B3b per-row "
+              + " ".join(f"{g:.1e}" for g in gaps[:9]))
+        assert gap <= FAST_TOL and max(gaps) <= FAST_REL
+        outside = ~_segment_mask(s, cuda)
+        assert bool((got[:, outside] == 0).all())
+        assert bool((got[9:] == 0).all())
+        torch.testing.assert_close(got_bg, want_bg, rtol=1e-4, atol=1e-4)
+
+    def test_autograd_routes_to_fast_kernels(self, cuda, monkeypatch):
+        for name in ("composite_stream_plain", "composite_stream_bwd_plain",
+                     "composite_stream_fast_plain",
+                     "composite_stream_bwd_fast_plain"):
+            monkeypatch.setattr(stream, name, _refuse)
+        s = _stream_32x16(2)
+        a = _args(s, cuda)
+        attrs = a[0].clone().requires_grad_()
+        g_out, g_tfin = (c.to(cuda) for c in _cotangents(s, 2))
+        before = _launch_counts()
+        out, tfin = composite_stream(attrs, *a[1:], fast=True)
+        torch.autograd.backward((out, tfin), (g_out, g_tfin))
+        torch.cuda.synchronize()
+        after = _launch_counts()
+        assert [x - y for x, y in zip(after, before)] == [0, 0, 1, 1, 0, 0]
+        assert bool(torch.isfinite(attrs.grad).all())
+        assert float(attrs.grad.abs().max()) > 0
+
+    def test_fast_train_step_launches_fast_kernels_only(self, cuda,
+                                                        monkeypatch):
+        from mvs_gaussian_splatting_tpu_torch.ops.rasterize import \
+            RasterConfig
+        for name in ("composite_stream_fast_plain",
+                     "composite_stream_bwd_fast_plain"):
+            monkeypatch.setattr(stream, name, _refuse)
+        before = _launch_counts()
+        _one_train_step(cuda, RasterConfig(tile_w=32, tile_h=16,
+                                           fast_math=True))
+        after = _launch_counts()
+        assert [x - y for x, y in zip(after, before)] == [0, 0, 1, 1, 0, 0]
+
+
+def _padded_args(s, device):
+    return ([torch.from_numpy(s[k]).to(device) for k in
+             ("planes", "rgb", "valid", "counts", "bg")]
+            + [s["tiles_x"], s["tile_w"], s["tile_h"]])
+
+
+@pytest.mark.gpu
+class TestPaddedKernels:
+    @pytest.mark.parametrize("geometry", ["16x16", "32x16"])
+    @pytest.mark.parametrize("seed", [0, 1])
+    def test_kernels_match_plain(self, cuda, geometry, seed):
+        tw = 16 if geometry == "16x16" else 32
+        s = random_tables(seed, tiles_x=6, tiles_y=5, tile_w=tw)
+        a = _padded_args(s, cuda)
+        before = (composite.launches, composite.bwd_launches)
+        out, tfin = composite._padded_fwd(*a)
+        t, p = out.shape[:2]
+        rng = np.random.RandomState(seed)
+        g_out = torch.from_numpy(rng.randn(t, p, 3).astype(np.float32)).to(cuda)
+        g_tfin = torch.from_numpy(rng.randn(t, p).astype(np.float32)).to(cuda)
+        gpl, grgb, gbg = composite.composite_padded_bwd(*a, out, tfin, g_out,
+                                                        g_tfin)
+        torch.cuda.synchronize()
+        assert (composite.launches, composite.bwd_launches) == (
+            before[0] + 1, before[1] + 1)
+        ref, rtfin = composite.composite_padded_plain(*a)
+        gap = max(float((out - ref).abs().max()),
+                  float((tfin - rtfin).abs().max()))
+        wpl, wrgb, wbg = composite.composite_padded_bwd_plain(
+            *a, out, tfin, g_out, g_tfin)
+        gaps = bwd_gaps(torch.cat([gpl, grgb.permute(2, 0, 1)]),
+                        torch.cat([wpl, wrgb.permute(2, 0, 1)]))
+        print(f"{geometry} seed {seed}: B4 vs plain {gap:.2e}; B5 per-plane "
+              + " ".join(f"{g:.1e}" for g in gaps))
+        assert gap <= TOL and max(gaps) <= BWD_REL
+        dead = torch.from_numpy(s["valid"] == 0).to(cuda)
+        assert bool(dead.any())
+        assert bool((gpl[:, dead] == 0).all()) and bool((grgb[dead] == 0).all())
+        torch.testing.assert_close(gbg, wbg, rtol=1e-6, atol=0)
+
+    def test_autograd_routes_to_padded_kernels(self, cuda, monkeypatch):
+        for name in ("composite_padded_plain", "composite_padded_bwd_plain",
+                     "composite_tiles_jnp"):
+            monkeypatch.setattr(composite, name, _refuse)
+        s = random_tables(2, tiles_x=5, tiles_y=4, tile_w=32)
+        a = _padded_args(s, cuda)
+        planes = a[0].clone().requires_grad_()
+        rgb = a[1].clone().requires_grad_()
+        before = (composite.launches, composite.bwd_launches)
+        out, tfin = composite.composite_padded(planes, rgb, *a[2:])
+        (out.square().sum() + tfin.sum()).backward()
+        torch.cuda.synchronize()
+        assert (composite.launches, composite.bwd_launches) == (
+            before[0] + 1, before[1] + 1)
+        assert float(planes.grad[0].abs().max()) > 0
+        assert bool(torch.isfinite(rgb.grad).all())
+
+    def test_pallas_train_step_launches_padded_kernels(self, cuda,
+                                                       monkeypatch):
+        from mvs_gaussian_splatting_tpu_torch.ops.rasterize import \
+            RasterConfig
+        for name in ("composite_padded_plain", "composite_padded_bwd_plain",
+                     "composite_tiles_jnp"):
+            monkeypatch.setattr(composite, name, _refuse)
+        before = _launch_counts()
+        _one_train_step(cuda, RasterConfig(backend="pallas", tile_w=32,
+                                           tile_h=16, tile_capacity=256))
+        after = _launch_counts()
+        assert [x - y for x, y in zip(after, before)] == [0, 0, 0, 0, 1, 1]
+
+
+class TestPaddedWrapperOnCPU:
+    @pytest.mark.parametrize("bad", ["planes", "valid", "counts", "tile"])
+    def test_rejects_malformed_inputs(self, bad):
+        a = _padded_args(random_tables(3, tiles_x=2, tiles_y=2, k=64), "cpu")
+        if bad == "planes":
+            a[0] = a[0][:5]
+        elif bad == "valid":
+            a[2] = a[2] > 0
+        elif bad == "counts":
+            a[3] = a[3].long()
+        else:
+            a[6], a[7] = 64, 32
+        with pytest.raises((ValueError, TypeError)):
+            composite._padded_fwd(*a)
+
+    def test_cpu_tensors_take_plain_versions(self):
+        s = random_tables(4, tiles_x=3, tiles_y=2, k=96)
+        a = _padded_args(s, "cpu")
+        before = (composite.launches, composite.bwd_launches)
+        out, tfin = composite._padded_fwd(*a)
+        ref, rtfin = composite.composite_padded_plain(*a)
+        torch.testing.assert_close(out, ref, rtol=0, atol=0)
+        torch.testing.assert_close(tfin, rtfin, rtol=0, atol=0)
+        gpl, grgb, _ = composite.composite_padded_bwd(
+            *a, out, tfin, torch.ones_like(out), torch.zeros_like(tfin))
+        assert (composite.launches, composite.bwd_launches) == before
+        dead = torch.from_numpy(s["valid"] == 0)
+        assert float(gpl.abs().max()) > 0
+        assert not gpl[:, dead].any() and not grgb[dead].any()

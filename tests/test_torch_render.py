@@ -202,14 +202,16 @@ class TestRenderSlice:
             assert int(out_t["overflow_capacity"]) > 0
 
     def test_unported_backends_refused(self):
+        """Every backend of the JAX package and fast math are ported; what
+        is still refused is a backend name the JAX package does not
+        have."""
         d = random_model(20, seed=3)
         _, tcam = cameras()
         tp = params_from_numpy(d, "cpu")
-        for cfg in (trast.RasterConfig(backend="jnp"),
-                    trast.RasterConfig(fast_math=True)):
-            with pytest.raises(ValueError, match="not ported"):
+        for name in ("cuda", "round_robin", ""):
+            with pytest.raises(ValueError, match="unknown backend"):
                 render(tcam, W, H, tp, torch.zeros(3), sh_degree=3,
-                       raster_config=cfg)
+                       raster_config=trast.RasterConfig(backend=name))
 
 
 class TestOracle:

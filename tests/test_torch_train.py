@@ -402,14 +402,10 @@ def _pose(angle, radius=4.0):
     return r_w2c.T, -r_w2c @ eye
 
 
-def test_cli_train_synthetic(tmp_path):
-    """A hundred-odd Gaussians, 64×48, 20 steps on the CPU through
-    ``cli/train.py``: the loss falls, densification runs, parameters stay
-    finite, and the model directory holds its artifacts."""
-    from mvs_gaussian_splatting_tpu_torch.cli.train import main
-
+def write_synthetic_scene(tmp_path, n=120) -> str:
+    """A COLMAP scene of ``n`` Gaussians seen from 9 views at 64×48, with
+    noisy init points, under ``tmp_path/scene``; returns its path."""
     rng = np.random.RandomState(3)
-    n = 120
     means = rng.uniform(-0.8, 0.8, (n, 3)).astype(np.float32)
     scales = rng.uniform(0.05, 0.2, (n, 3)).astype(np.float32)
     quats = rng.randn(n, 4).astype(np.float32)
@@ -435,9 +431,20 @@ def test_cli_train_synthetic(tmp_path):
     init = means + rng.randn(n, 3).astype(np.float32) * 0.05
     write_pinhole_scene(str(tmp_path / "scene"), cams, imgs, init,
                         np.full((n, 3), 128, np.uint8))
+    return str(tmp_path / "scene")
+
+
+def test_cli_train_synthetic(tmp_path):
+    """A hundred-odd Gaussians, 64×48, 20 steps on the CPU through
+    ``cli/train.py``: the loss falls, densification runs, parameters stay
+    finite, and the model directory holds its artifacts."""
+    from mvs_gaussian_splatting_tpu_torch.cli.train import main
+
+    n = 120
+    scene = write_synthetic_scene(tmp_path, n)
     model = tmp_path / "model"
     params, aux, _, hist = main([
-        "-s", str(tmp_path / "scene"), "-m", str(model), "--eval",
+        "-s", scene, "-m", str(model), "--eval",
         "--no-fast_math", "--device", "cpu", "--iterations", "20",
         "--densify_from_iter", "5", "--densification_interval", "10",
         "--test_iterations", "20", "--save_iterations", "20",
@@ -460,8 +467,29 @@ def test_cli_train_synthetic(tmp_path):
 
 
 def test_fast_math_refused(tmp_path):
+    """The configuration's default ``fast_math=True``, once refused, now
+    trains: ``cli/train.py`` with no ``--no-fast_math`` composites through
+    the fast-math mode (its plain versions on the CPU) and writes its
+    checkpoint, which the port loads back."""
     from mvs_gaussian_splatting_tpu_torch.cli.train import main
-    with pytest.raises(ValueError, match="B3.*--no-fast_math"):
-        main(["-s", str(tmp_path), "-m", str(tmp_path / "m"), "--device",
-              "cpu"])
-    assert not (tmp_path / "m").exists()
+    from mvs_gaussian_splatting_tpu_torch.ops import stream
+
+    scene = write_synthetic_scene(tmp_path)
+    model = tmp_path / "m"
+    calls = []
+    real = stream.composite_stream_bwd_fast_plain
+    stream.composite_stream_bwd_fast_plain = (
+        lambda *a, **k: calls.append(1) or real(*a, **k))
+    try:
+        params, _, _, hist = main([
+            "-s", scene, "-m", str(model), "--device", "cpu",
+            "--iterations", "6", "--checkpoint_iterations", "6",
+            "--log_every", "2", "--tile_w", "32", "--tile_h", "16"])
+    finally:
+        stream.composite_stream_bwd_fast_plain = real
+    assert len(calls) == 6                     # one fast backward per step
+    losses = [v for _, v in hist["loss"]]
+    assert len(losses) == 3 and all(np.isfinite(losses))
+    loaded = tckpt.load_checkpoint(str(model / "chkpnt6.npz"), "cpu")
+    assert loaded[3] == 6
+    torch.testing.assert_close(loaded[0].xyz, params.xyz, rtol=0, atol=0)
