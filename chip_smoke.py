@@ -13,7 +13,13 @@ padded-table backend. Phases, one JSON line each:
 
 1. card: name and power limit (nvidia-smi), torch and CUDA versions;
 2. build: ``csrc/*.cu`` → ``build/torch_kernels/libgs_kernels.so`` with
-   nvcc, and each kernel's ``-Xptxas -v`` register / shared-memory line;
+   nvcc, and at the same time the section-clock library of
+   ``profile_kernels.py`` (``-DGS_SECTION_CLOCKS``, a measuring build the
+   port never runs); each kernel's ``-Xptxas -v`` register / shared-memory
+   line, and B1's, B3f's and B3b's registers and resident CTAs per SM
+   (``cudaOccupancyMaxActiveBlocksPerMultiprocessor`` through the
+   library's own launch configuration): B3b needs at least 32 resident
+   warps per SM at 32×16 tiles and no spills;
 3. kernel vs plain version: ``stream_fwd`` (B1) against
    ``composite_stream_plain`` on one real view's stream and on a random
    stream made from ``--seed`` (the 32 heaviest tiles plus 32 drawn with a
@@ -95,6 +101,15 @@ padded-table backend. Phases, one JSON line each:
    its overflow counters, PSNR against ground truth, time and peak memory
    are reported (its clipping is counted, not held);
 
+10. sections: the time split of B1 (phase 5's 15 views), B3f and B3b
+   (phase 7's 5 training streams) by section from the section-clock
+   build (``profile_kernels.kernel_split``), their warp-step counts and
+   last-wave drain, the SASS instructions per warp-step of the loop that
+   holds the exp (``cuobjdump -sass``), the SM clock under load, the
+   issue-rate floor those give, and a work bound (the bound's operations
+   for the contributing pairs only, plus the cull's box test on each live
+   warp-step) beside each kernel's bound;
+
 then the ``kernels`` line (B1, B2, B3f, B3b, B4 and B5, with their launches
 on the main paths: the render slice of phase 4, the two arms of phase 7
 (not its control), phase 8, phase 9 and phase 9b, each counted from zero)
@@ -110,11 +125,13 @@ from __future__ import annotations
 import argparse
 import json
 import os
+import re
 import shutil
 import subprocess
 import sys
 import tempfile
 import time
+from concurrent.futures import ThreadPoolExecutor
 
 import numpy as np
 
@@ -133,10 +150,15 @@ FLOPS_PER_PAIR_BWD = 64
 # 8 entries (dpower and w, each as a hi and a lo part)
 FLOPS_PER_PAIR_FAST_BWD = 35
 MMA_FLOPS_PER_PAIR = 4 * 2048 / 64
+# the work bound (phase 10): the operations above per contributing pair
+# only, plus the cull's box test (six f32 operations) on each lane of each
+# live warp-step
+BOX_TEST_OPS = 6 * 32
 BWD_REL = 1e-5                # backward kernel vs plain, per row, relative
 FAST_TOL = 2e-3               # fast kernels vs plain: the JAX package's
 FAST_REL = 5e-3               # fast-mode contract (tests/test_fast_math.py)
 ARM_PSNR = 0.1                # fast vs exact arm, final PSNR, dB
+MIN_WARPS_B3B = 32            # B3b's resident warps per SM at 32×16 tiles
 PKG = "mvs_gaussian_splatting_tpu_torch/csrc/"
 JAX_PALLAS = "mvs_gaussian_splatting_tpu/ops/pallas/"
 # name → (source, the TPU kernel it replaces)
@@ -523,14 +545,17 @@ def evaluate(params, aux, cams, eval_cfg):
                           instance_cap=cap, tier_layout=layout)
 
 
-def kernels_on_views(params, aux, cams, base_cfg, seed):
+def kernels_on_views(params, aux, cams, base_cfg, seed, libs):
     """The training kernels alone on each camera's stream, at the instance
     cap the loop settles on for that load: B2, and B3f and B3b (each fast
     backward given its own forward's outputs), each kernel's time over
     repeated launches, its plain version's time, its gap and its bound; and
-    B1's time and bound on the same streams, beside B3f's."""
+    B1's time and bound on the same streams, beside B3f's. With ``libs`` =
+    (the kernel library, its section-clock build): B3f's and B3b's section
+    splits, and the SM clock while B3b runs on the first stream."""
     import torch
 
+    from mvs_gaussian_splatting_tpu_torch import profile_kernels
     from mvs_gaussian_splatting_tpu_torch.models.gaussians import (
         activated, get_features)
     from mvs_gaussian_splatting_tpu_torch.ops import stream
@@ -589,6 +614,17 @@ def kernels_on_views(params, aux, cams, base_cfg, seed):
                 lambda: stream.composite_stream_bwd_fast_plain(
                     *call, ref, rtfin, g_out, g_tfin))
             fchk = fast_check(call, g_out, g_tfin)
+            splits = {
+                "b3f": profile_kernels.kernel_split(*libs, "stream_fwd_fast",
+                                                    call),
+                "b3b": profile_kernels.kernel_split(
+                    *libs, "stream_bwd_fast", call,
+                    (fout, ftfin, g_out, g_tfin))}
+            if k == 0:
+                clock = profile_kernels.sm_clock_mhz(
+                    lambda: profile_kernels.launch(
+                        libs[0], "stream_bwd_fast", call,
+                        (fout, ftfin, g_out, g_tfin)))
         entries = int(bins.counts.sum())
         bwd_bytes = (2 * 9 * 4 * entries + 3 * 4 * t
                      + (3 + 1 + 3 + 1) * 4 * t * p)
@@ -606,21 +642,25 @@ def kernels_on_views(params, aux, cams, base_cfg, seed):
                             "bound_by": b1_bound[1]},
                      "b2": {"ms": b2_ms, "plain_ms": b2_plain_ms,
                             "bound_ms": b2_bound[0], "bound_by": b2_bound[1],
+                            "bytes": bwd_bytes,
                             "rel_gap": chk["rel_gap"],
                             "max_abs_err": chk["max_abs_err"],
                             "zeros_outside": chk["zeros_outside"]},
                      "b3f": {"ms": b3f_ms, "plain_ms": b3f_plain_ms,
                              "bound_ms": b3f_bound[0],
                              "bound_by": b3f_bound[1],
+                             "bytes": fwd_bytes,
                              "max_abs_err": fchk["fwd_max_abs"]},
                      "b3b": {"ms": b3b_ms, "plain_ms": b3b_plain_ms,
                              "bound_ms": b3b_bound[0],
                              "bound_by": b3b_bound[1],
+                             "bytes": bwd_bytes,
                              "rel_gap": fchk["bwd_rel_gap"],
                              "max_abs_err": fchk["bwd_max_abs"],
-                             "zeros_outside": fchk["zeros_outside"]}})
+                             "zeros_outside": fchk["zeros_outside"]},
+                     "sections": splits})
         del bins, attrs, out, tfin, fout, ftfin, ref, rtfin, pre, call
-    return rows
+    return rows, clock
 
 
 def mean_kernel(rows, key):
@@ -631,6 +671,7 @@ def mean_kernel(rows, key):
     return {"ms": float(np.mean([v["ms"] for v in sub])),
             "plain_ms": float(np.mean([v["plain_ms"] for v in sub])),
             "bound_ms": bound_ms,
+            "bytes": float(np.mean([v["bytes"] for v in sub])),
             "bound_by": max(set(v["bound_by"] for v in sub),
                             key=[v["bound_by"] for v in sub].count)}
 
@@ -733,11 +774,12 @@ def resume_arm(tmp, data, seed, name, flags, eval_cfg, before, faults):
     return rec, params, aux, scene
 
 
-def train_resume(tmp, data, seed, faults):
+def train_resume(tmp, data, seed, faults, libs):
     """Phase 7: resume the retained model and train it 200 steps in the
     default fast-math mode and in exact mode, each traced at its
-    iterations 100-120; the training kernels on 5 views' streams; then the
-    exact resume at a tenth of every learning rate, measured only."""
+    iterations 100-120; the training kernels on 5 views' streams (``libs``:
+    see kernels_on_views); then the exact resume at a tenth of every
+    learning rate, measured only."""
     import torch
 
     from mvs_gaussian_splatting_tpu_torch.data.scene import Scene
@@ -775,15 +817,20 @@ def train_resume(tmp, data, seed, faults):
     if max(abs(v) for v in gaps.values()) > ARM_PSNR:
         faults.append(f"fast vs exact arm: final PSNR gaps {gaps}")
     # the 5 views PR 4 timed B2 on: the first of the run's seeded order
-    rows = kernels_on_views(params, aux, run_scene.get_train_cameras()[:5],
-                            raster_cfg, seed)
+    rows, clock = kernels_on_views(
+        params, aux, run_scene.get_train_cameras()[:5], raster_cfg, seed,
+        libs)
     result = {"launches": {k: v["launches"] for k, v in arms.items()},
               "b2": mean_kernel(rows, "b2"), "b3f": mean_kernel(rows, "b3f"),
-              "b3b": mean_kernel(rows, "b3b")}
+              "b3b": mean_kernel(rows, "b3b"), "clock": clock,
+              "sections": {k: [r["sections"][k] for r in rows]
+                           for k in ("b3f", "b3b")}}
     result["b2"]["max_abs_err"] = max(r["b2"]["max_abs_err"] for r in rows)
     result["b3f"]["max_abs_err"] = max(r["b3f"]["max_abs_err"] for r in rows)
     result["b3b"]["max_abs_err"] = max(r["b3b"]["max_abs_err"] for r in rows)
-    exact_rec.update({"kernels_on_views": rows,
+    exact_rec.update({"kernels_on_views": [
+                          {k: v for k, v in r.items() if k != "sections"}
+                          for r in rows],
                       "kernels": {k: result[k] for k in
                                   ("b2", "b3f", "b3b")},
                       "b1_ms_on_train_views": float(np.mean(
@@ -1155,7 +1202,7 @@ def main(argv=None):
           "count": torch.cuda.device_count(), "torch": torch.__version__,
           "cuda": torch.version.cuda})
 
-    from mvs_gaussian_splatting_tpu_torch import kernels
+    from mvs_gaussian_splatting_tpu_torch import kernels, profile_kernels
     from mvs_gaussian_splatting_tpu_torch.cli.render import (
         adaptive_eval_config, eval_raster_config, measure_tile_needs,
         params_from_ply, quantize_image)
@@ -1170,19 +1217,37 @@ def main(argv=None):
     from mvs_gaussian_splatting_tpu_torch.train.config import PipelineConfig
     dev = torch.device("cuda")
 
-    # 2. build
+    # 2. build: the kernel library and its section-clock build at once
     t0 = time.time()
-    kernels.build(force=True)
-    kernels.library()
+    sec_path = kernels.BUILD_DIR / "libgs_kernels_sections.so"
+    with ThreadPoolExecutor(2) as pool:
+        for job in [pool.submit(kernels.build, True),
+                    pool.submit(kernels.build, True, library=sec_path,
+                                defines=profile_kernels.DEFINES)]:
+            job.result()
+    lib = kernels.library()
+    libs = (lib, kernels.load(sec_path))
+    ptxas = {name: kernels.ptxas_report(mangled) for name, mangled in (
+        ("stream_fwd", "17stream_fwd_kernelILb0E"),
+        ("stream_fwd_fast", "17stream_fwd_kernelILb1E"),
+        ("stream_bwd", "17stream_bwd_kernel"),
+        ("stream_bwd_fast", "22stream_bwd_fast_kernel"),
+        ("padded_fwd", "17padded_fwd_kernel"),
+        ("padded_bwd", "17padded_bwd_kernel"))}
+    # warps per CTA: 8x4-pixel warp blocks, 8 at 16x16, 16 at 32x16
+    occupancy = {f"{tw}x16": profile_kernels.occupancy(lib, tw, 16)
+                 for tw in (16, 32)}
+    for geometry, kernels_occ in occupancy.items():
+        for o in kernels_occ.values():
+            o["warps_per_sm"] = o["ctas_per_sm"] * (
+                8 if geometry == "16x16" else 16)
     emit({"phase": "build", "seconds": round(time.time() - t0, 2),
           "library": os.path.relpath(kernels.LIBRARY, ROOT),
-          "ptxas": {name: kernels.ptxas_report(mangled) for name, mangled in (
-              ("stream_fwd", "17stream_fwd_kernelILb0E"),
-              ("stream_fwd_fast", "17stream_fwd_kernelILb1E"),
-              ("stream_bwd", "17stream_bwd_kernel"),
-              ("stream_bwd_fast", "22stream_bwd_fast_kernel"),
-              ("padded_fwd", "17padded_fwd_kernel"),
-              ("padded_bwd", "17padded_bwd_kernel"))}})
+          "ptxas": ptxas, "occupancy": occupancy})
+    b3b_warps = occupancy["32x16"]["stream_bwd_fast"]["warps_per_sm"]
+    b3b_spills = [line for line in ptxas["stream_bwd_fast"]
+                  if any(int(n) for n in re.findall(
+                      r"(\d+) bytes spill (?:stores|loads)", line))]
 
     # the model, its cameras and the measured eval layout
     t0 = time.time()
@@ -1271,6 +1336,9 @@ def main(argv=None):
                                    (syn["counts"] > 2560).sum())}})
     # checks are collected and raised after the last measurement
     faults = []
+    if b3b_warps < MIN_WARPS_B3B or b3b_spills:
+        faults.append(f"B3b at 32x16: {b3b_warps} resident warps per SM "
+                      f"(want >= {MIN_WARPS_B3B}), spills {b3b_spills}")
     if max(gaps.values()) > TOL:
         faults.append(f"kernel disagrees with its plain version: {gaps}")
 
@@ -1359,7 +1427,7 @@ def main(argv=None):
             faults.append(f"clip-free view {k}: {r}")
 
     # 5. stage times, kernel time, plain time and bound per view
-    per_view = []
+    per_view, b1_splits = [], []
     reps = 5
     tile_ids = torch.arange(tiles_x * tiles_y, dtype=torch.int32, device=dev)
     for cam in test_cams:
@@ -1387,6 +1455,8 @@ def main(argv=None):
                   enumerate(("preprocess", "bin_and_pack", "composite",
                              "assemble"))}
         k_ms = cuda_ms(lambda: stream.composite_stream(*call), reps)
+        b1_splits.append(profile_kernels.kernel_split(*libs, "stream_fwd",
+                                                      call))
         plain = []
         p_ms = cuda_ms(lambda: plain.append(stream.composite_stream_plain(
             *call, count_visits=True)))
@@ -1424,13 +1494,48 @@ def main(argv=None):
     tmp = tempfile.mkdtemp(prefix="gs_chip_smoke_")
     try:
         data = write_training_inputs(tmp, cams, test_cams, args.seed)
-        resume = train_resume(tmp, data, args.seed, faults)
+        resume = train_resume(tmp, data, args.seed, faults, libs)
         init = train_init(tmp, data, args.seed, faults)
         padded = padded_phase(params, test_cams, free, data, tmp, args.seed,
                               faults)
         cli = padded_cli(tmp, data, faults)
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
+    # 10. sections: the split, the SASS loop and the issue-rate floor
+    sass = profile_kernels.sass_loops(kernels.LIBRARY)
+    mhz = resume["clock"]["sm_mhz"]
+    bounds = {"stream_fwd": float(np.mean([max(v["bytes_ms"], v["flops_ms"])
+                                           for v in per_view])),
+              "stream_fwd_fast": resume["b3f"]["bound_ms"],
+              "stream_bwd_fast": resume["b3b"]["bound_ms"]}
+    split_rows = {"stream_fwd": b1_splits,
+                  "stream_fwd_fast": resume["sections"]["b3f"],
+                  "stream_bwd_fast": resume["sections"]["b3b"]}
+    layout = {"stream_fwd": "16x16", "stream_fwd_fast": "32x16",
+              "stream_bwd_fast": "32x16"}
+    nbytes = {"stream_fwd": float(np.mean([v["bytes"] for v in per_view])),
+              "stream_fwd_fast": resume["b3f"]["bytes"],
+              "stream_bwd_fast": resume["b3b"]["bytes"]}
+    pair_ops = {"stream_fwd": (FLOPS_PER_PAIR, 0.0),
+                "stream_fwd_fast": (FLOPS_PER_PAIR, 0.0),
+                "stream_bwd_fast": (FLOPS_PER_PAIR_FAST_BWD,
+                                    MMA_FLOPS_PER_PAIR)}
+    sections = {}
+    for name, rows in split_rows.items():
+        agg = profile_kernels.aggregate(rows, sass.get(name), mhz)
+        c = agg["counts"]
+        # the bound on the work this run's data needs: contributing pairs
+        # and the box test of each live warp-step, not every visited pair
+        work = bound(nbytes[name],
+                     pair_ops[name][0] * c["pairs_contributing"]
+                     + BOX_TEST_OPS * c["warp_steps"],
+                     pair_ops[name][1] * c["pairs_contributing"])
+        sections[name] = dict(agg, bound_ms=bounds[name],
+                              work_bound_ms=work[0], work_bound_by=work[1],
+                              layout=layout[name],
+                              **occupancy[layout[name]][name])
+    emit({"phase": "sections", "card": smi, "clock": resume["clock"],
+          "kernels": sections})
     paths = {"render_slice": launches,
              "train_resume_fast": resume["launches"]["fast"],
              "train_resume_exact": resume["launches"]["exact"],

@@ -1,6 +1,8 @@
 // Per-entry arithmetic shared by the composite kernels: stream_fwd.cu (B1
 // and its fast-math instantiation), stream_bwd.cu (B2), stream_bwd_fast.cu
-// (B3b), padded_fwd.cu (B4) and padded_bwd.cu (B5).
+// (B3b), padded_fwd.cu (B4) and padded_bwd.cu (B5); and the tile geometry
+// and per-warp cull of the stream kernels B1, B3f and B3b (the end of the
+// file).
 //
 // A backward kernel replays its forward and takes the forward's include and
 // terminate decisions from this replay. If one decision or one w differed
@@ -29,6 +31,10 @@
 
 #pragma once
 
+#include <climits>
+#include <cmath>
+#include <cstdint>
+
 #include <cuda_runtime.h>
 
 namespace gs {
@@ -45,7 +51,11 @@ struct Entry {
   float alpha;   // min(0.99, raw)
 };
 
-// Fills e and returns whether the entry contributes at (px, py).
+// Fills e and returns whether the entry contributes at (px, py). The exp
+// is taken whatever the sign of power (e is read only when this returns
+// true), so that a warp issues one compare and one branch per pair: for a
+// live pair power > 0 almost never holds, the conic being positive
+// definite.
 __device__ __forceinline__ bool entry_alpha(float x, float y, float ca,
                                             float cb, float cc, float op,
                                             float px, float py, Entry& e) {
@@ -55,12 +65,11 @@ __device__ __forceinline__ bool entry_alpha(float x, float y, float ca,
                                __fmul_rn(__fmul_rn(cc, e.dy), e.dy));
   const float power = __fsub_rn(__fmul_rn(-0.5f, quad),
                                 __fmul_rn(__fmul_rn(cb, e.dx), e.dy));
-  if (!(power <= 0.0f)) return false;
   e.g = expf(power);
   e.raw = __fmul_rn(op, e.g);
   // min(0.99, raw) that keeps a NaN, as jnp.minimum / torch.minimum do
   e.alpha = e.raw > kMaxAlpha ? kMaxAlpha : e.raw;
-  return e.alpha >= kMinAlpha;
+  return (power <= 0.0f) & (e.alpha >= kMinAlpha);
 }
 
 // Transmittance after an entry: T (1 - alpha); in fast mode T - alpha T
@@ -169,6 +178,144 @@ __device__ __forceinline__ float warp_sum(float v) {
   for (int off = 16; off > 0; off >>= 1)
     v = __fadd_rn(v, __shfl_xor_sync(0xffffffffu, v, off));
   return v;
+}
+
+// --- Tile geometry and the per-warp cull (B1, B3f, B3b) ---
+//
+// Warps as compact pixel blocks: warp w of a tile covers the kBlockW x
+// kBlockH block (w % nbx, w / nbx), nbx = ceil(tile_w / kBlockW), so that
+// fewer of its lanes sit outside a splat than in a 32-pixel row. A block
+// that overhangs the tile masks its lanes outside it (done from the start,
+// writing nothing). Where the blocks would need more than 1024 threads (a
+// tile only 1-3 pixels tall or narrow, say 512 x 2), warp w takes the
+// pixels 32 w .. 32 w + 31 in row-major order instead. Output indexing is by
+// pixel p = y tile_w + x either way.
+constexpr int kBlockW = 8;
+constexpr int kBlockH = 4;
+
+__host__ __device__ __forceinline__ bool compact_blocks(int tile_w,
+                                                        int tile_h) {
+  return ((tile_w + kBlockW - 1) / kBlockW) *
+             ((tile_h + kBlockH - 1) / kBlockH) * 32 <= 1024;
+}
+
+// Threads (whole warps) of a tile's CTA.
+__host__ __device__ __forceinline__ int tile_threads(int tile_w, int tile_h) {
+  return compact_blocks(tile_w, tile_h)
+             ? ((tile_w + kBlockW - 1) / kBlockW) *
+                   ((tile_h + kBlockH - 1) / kBlockH) * 32
+             : (tile_w * tile_h + 31) / 32 * 32;
+}
+
+// Pixel (x, y) in the tile of thread `tid`, and whether it is one.
+__device__ __forceinline__ bool thread_pixel(int tid, int tile_w, int tile_h,
+                                             bool compact, int& x, int& y) {
+  if (compact) {
+    const int warp = tid >> 5, lane = tid & 31;
+    const int nbx = (tile_w + kBlockW - 1) / kBlockW;
+    x = (warp % nbx) * kBlockW + (lane % kBlockW);
+    y = (warp / nbx) * kBlockH + (lane / kBlockW);
+    return x < tile_w && y < tile_h;
+  }
+  x = tid % tile_w;
+  y = tid / tile_w;
+  return tid < tile_w * tile_h;
+}
+
+// The pixel centres a warp covers, as a rectangle: centre (cx, cy) and
+// half extents (ex, ey), all exact (halves of integers). Every warp holds
+// a pixel (its lane 0), so the rectangle is never empty.
+struct Rect {
+  float cx, cy, ex, ey;
+};
+
+__device__ __forceinline__ Rect warp_rect(bool valid, int px, int py) {
+  const unsigned all = 0xffffffffu;
+  const int x0 = __reduce_min_sync(all, valid ? px : INT_MAX);
+  const int x1 = __reduce_max_sync(all, valid ? px : INT_MIN);
+  const int y0 = __reduce_min_sync(all, valid ? py : INT_MAX);
+  const int y1 = __reduce_max_sync(all, valid ? py : INT_MIN);
+  return {0.5f * static_cast<float>(x0 + x1),
+          0.5f * static_cast<float>(y0 + y1),
+          0.5f * static_cast<float>(x1 - x0),
+          0.5f * static_cast<float>(y1 - y0)};
+}
+
+// Staged entries are entry-major, 12 floats (three float4) each:
+//   {x, y, hx, hy}, {conic a, b, c, opacity}, {r, g, b, unused},
+// with (hx, hy) the half-widths of the entry's cull box (cull_box).
+constexpr int kSlot = 12;
+
+// Starts copying attribute rows 0-8 of the entry at `src` (rows `stride`
+// floats apart) into `slot` with cp.async; stage_box reads them after the
+// calling thread's cp.async.wait_all.
+__device__ __forceinline__ void stage_async(float* slot, const float* src,
+                                            long long stride) {
+#pragma unroll
+  for (int r = 0; r < 9; ++r) {
+    // rows 0-1 to floats 0-1, rows 2-8 to floats 4-10
+    const unsigned dst = static_cast<unsigned>(
+        __cvta_generic_to_shared(slot + (r < 2 ? r : r + 2)));
+    asm volatile("cp.async.ca.shared.global [%0], [%1], 4;\n" ::"r"(dst),
+                 "l"(src + r * stride));
+  }
+}
+
+__device__ __forceinline__ void stage_commit() {
+  asm volatile("cp.async.commit_group;\n" ::);
+}
+
+__device__ __forceinline__ void stage_wait() {
+  asm volatile("cp.async.wait_all;\n" ::: "memory");
+}
+
+// The half-widths (hx, hy) of an axis-aligned box around the entry's
+// centre outside which it contributes to no pixel: alpha >= 1/255 needs
+// op e^power >= 1/255 (the 0.99 clamp only lowers alpha), that is, with
+// power = -Q / 2, Q = a dx^2 + 2 b dx dy + c dy^2 <= 2 L, L = ln(255 op),
+// an ellipse whose extents are sqrt(2 L c / det) and sqrt(2 L a / det),
+// det = a c - b^2. The box is widened so that rounding never culls a pair
+// the pinned arithmetic above includes:
+//   - the computed power may differ from -Q / 2 by about 7 u Q / (1 - rho)
+//     (u = 2^-24, rho = |b| / sqrt(a c): the terms of Q cancel as rho -> 1),
+//     which is at most 8.4e-4 of Q where rho <= 0.999, so L is raised by
+//     1e-3 (exp and the op product) and scaled by 1.002;
+//   - the half-widths get 1e-3 of relative slack (det's rounding, at most
+//     ~1e-4 of it for rho <= 0.999) and 1 px (rounding of the centre and
+//     of the box test).
+// No box, (hx, hy) = (-inf, -inf), where op < 1/255 (as a float compare,
+// NaN included: such an entry never contributes). The whole plane, (+inf,
+// +inf), where a <= 0, c <= 0, rho > 0.999 (det <= 2.5e-3 a c) or anything
+// is not finite. ops/stream.py:cull_box is this function in PyTorch, and
+// tests/test_torch_cull.py holds it against the pinned arithmetic.
+__device__ __forceinline__ void cull_box(float ca, float cb, float cc,
+                                         float op, float& hx, float& hy) {
+  if (!(op >= kMinAlpha)) {
+    hx = hy = -INFINITY;
+    return;
+  }
+  const float ac = ca * cc;
+  const float det = ac - cb * cb;
+  const float big_l = (fmaxf(logf(255.0f * op), 0.0f) + 1e-3f) * 1.002f;
+  hx = sqrtf(2.0f * big_l * cc / det) * 1.001f + 1.0f;
+  hy = sqrtf(2.0f * big_l * ca / det) * 1.001f + 1.0f;
+  if (!(ca > 0.0f && cc > 0.0f && det > 2.5e-3f * ac && hx < INFINITY &&
+        hy < INFINITY))
+    hx = hy = INFINITY;
+}
+
+// Fills the cull box of the staged entry in `slot`.
+__device__ __forceinline__ void stage_box(float* slot) {
+  cull_box(slot[4], slot[5], slot[6], slot[7], slot[2], slot[3]);
+}
+
+// Whether the entry {x, y, hx, hy} may reach the rectangle r, as
+// |x - cx| - hx <= ex and |y - cy| - hy <= ey (three instructions an axis):
+// false means no pixel of r can include it (false too for a NaN or
+// infinite centre, which no pixel includes).
+__device__ __forceinline__ bool box_hits(const Rect& r, float4 geo) {
+  return (fabsf(geo.x - r.cx) - geo.z <= r.ex) &
+         (fabsf(geo.y - r.cy) - geo.w <= r.ey);
 }
 
 }  // namespace gs

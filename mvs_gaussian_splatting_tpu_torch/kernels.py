@@ -2,13 +2,15 @@
 
 Every ``csrc/*.cu`` file is compiled by its own ``nvcc`` for ``sm_90a``
 (all in parallel) and linked into one shared library with a plain C
-interface, ``build/torch_kernels/libgs_kernels.so`` under the repository
-root, loaded with ``ctypes``.
+interface, ``libgs_kernels.so`` in :data:`BUILD_DIR`, loaded with
+``ctypes``: ``build/torch_kernels`` of the checkout when the package sits
+in a source tree, else a per-user cache directory (:func:`build_dir`).
 No PyTorch header is included, so the build takes seconds. It happens at
 the first call of :func:`library` (never at import: machines without a card
 import every module), and again whenever a source or a header
-(``csrc/*.cuh``) is newer than the library. ``-Xptxas -v`` writes each kernel's registers and shared memory
-into ``build.log`` beside the library.
+(``csrc/*.cuh``) is newer than the library. ``-Xptxas -v`` writes each
+kernel's registers and shared memory into the log beside the library
+(:data:`BUILD_LOG`).
 """
 
 from __future__ import annotations
@@ -19,10 +21,27 @@ import shutil
 import subprocess
 from pathlib import Path
 
-CSRC = Path(__file__).resolve().parent / "csrc"
-BUILD_DIR = Path(__file__).resolve().parent.parent / "build" / "torch_kernels"
+PACKAGE = Path(__file__).resolve().parent
+CSRC = PACKAGE / "csrc"
+
+
+def build_dir(package: Path = PACKAGE) -> Path:
+    """Where the kernels are built: ``build/torch_kernels`` of the checkout
+    when ``package`` sits in a source tree (its parent holds
+    ``pyproject.toml``); otherwise, as for an installed package whose parent
+    is ``site-packages``, ``torch_kernels`` in a per-user cache directory
+    (``$XDG_CACHE_HOME`` or ``~/.cache``)."""
+    root = package.parent
+    if (root / "pyproject.toml").is_file():
+        return root / "build" / "torch_kernels"
+    cache = (os.environ.get("XDG_CACHE_HOME")
+             or os.path.join(os.path.expanduser("~"), ".cache"))
+    return Path(cache) / package.name / "torch_kernels"
+
+
+BUILD_DIR = build_dir()
 LIBRARY = BUILD_DIR / "libgs_kernels.so"
-BUILD_LOG = BUILD_DIR / "build.log"
+BUILD_LOG = LIBRARY.with_suffix(".log")
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
 LINK_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-shared"]
@@ -31,7 +50,8 @@ _P = ctypes.c_void_p
 _I = ctypes.c_int
 # name → argtypes; every pointer and the stream are c_void_p, or ctypes
 # would pass them as 32-bit ints and cut them.
-_STREAM_FWD = [_P, ctypes.c_longlong, _P, _P, _P, _P, _P, _P,
+# B1, B3f and B3b take the tile order (heaviest first) after tile_ids
+_STREAM_FWD = [_P, ctypes.c_longlong, _P, _P, _P, _P, _P, _P, _P,
                _I, _I, _I, _I, _P]
 _STREAM_BWD = [_P, ctypes.c_longlong, _P, _P, _P, _P, _P, _P, _P, _P,
                _I, _I, _I, _I, _P]
@@ -39,9 +59,17 @@ _SIGNATURES = {
     "gs_stream_fwd": _STREAM_FWD,            # B1
     "gs_stream_fwd_fast": _STREAM_FWD,       # B3f
     "gs_stream_bwd": _STREAM_BWD,            # B2
-    "gs_stream_bwd_fast": _STREAM_BWD,       # B3b
+    "gs_stream_bwd_fast": _STREAM_BWD[:5] + [_P] + _STREAM_BWD[5:],  # B3b
     "gs_padded_fwd": [_P] * 7 + [_I] * 5 + [_P],          # B4
     "gs_padded_bwd": [_P] * 10 + [_I] * 5 + [_P],         # B5
+    # (fast, tile_w, tile_h, *ctas_per_sm, *registers): the launch's
+    # resident CTAs per SM (cudaOccupancyMaxActiveBlocksPerMultiprocessor)
+    # and registers per thread
+    "gs_stream_fwd_occupancy": [_I, _I, _I, _P, _P],
+    "gs_stream_bwd_fast_occupancy": [_I, _I, _I, _P, _P],
+    # (buffer, tiles): the section-clock library's counters (sections.cuh)
+    "gs_stream_fwd_sections": [_P, _P],
+    "gs_stream_bwd_fast_sections": [_P, _P],
 }
 
 _lib = None
@@ -59,20 +87,25 @@ def _nvcc() -> str:
                        "/usr/local/cuda/bin): the CUDA kernels cannot be built")
 
 
-def build(force: bool = False) -> Path:
-    """Compile ``csrc/*.cu`` into :data:`LIBRARY` if it is missing or stale:
-    one ``nvcc -c`` per source, all started together, then one link."""
-    srcs = sorted(CSRC.glob("*.cu"))
-    deps = srcs + sorted(CSRC.glob("*.cuh"))
-    if (not force and LIBRARY.exists() and LIBRARY.stat().st_mtime
+def build(force: bool = False, *, csrc: Path = CSRC,
+          library: Path = LIBRARY, defines: tuple[str, ...] = ()) -> Path:
+    """Compile ``csrc/*.cu`` into ``library`` if it is missing or stale:
+    one ``nvcc -c`` per source, all started together, then one link; its
+    ``-Xptxas -v`` report goes to ``library`` with the suffix ``.log``.
+    ``defines`` (``-D`` flags) build a variant such as the section-clock
+    library of ``profile_kernels.py``, under another name."""
+    srcs = sorted(Path(csrc).glob("*.cu"))
+    deps = srcs + sorted(Path(csrc).glob("*.cuh"))
+    if (not force and library.exists() and library.stat().st_mtime
             >= max(s.stat().st_mtime for s in deps)):
-        return LIBRARY
-    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+        return library
+    library.parent.mkdir(parents=True, exist_ok=True)
     nvcc = _nvcc()
     tag = f"{os.getpid()}.tmp"
-    objs = [BUILD_DIR / f"{src.stem}.{tag}.o" for src in srcs]
-    cmds = [[nvcc, *NVCC_FLAGS, "-c", "-o", str(obj), str(src)]
-            for src, obj in zip(srcs, objs)]
+    objs = [library.parent / f"{library.stem}.{src.stem}.{tag}.o"
+            for src in srcs]
+    cmds = [[nvcc, *NVCC_FLAGS, *(f"-D{d}" for d in defines), "-c", "-o",
+             str(obj), str(src)] for src, obj in zip(srcs, objs)]
     procs = [subprocess.Popen(cmd, stdout=subprocess.PIPE,
                               stderr=subprocess.STDOUT, text=True)
              for cmd in cmds]
@@ -80,7 +113,7 @@ def build(force: bool = False) -> Path:
     log = "".join(" ".join(cmd) + "\n" + out for cmd, out in zip(cmds, outs))
     failed = [(cmd[-1], proc.returncode, out)
               for cmd, proc, out in zip(cmds, procs, outs) if proc.returncode]
-    tmp = LIBRARY.with_name(f"{LIBRARY.name}.{tag}")
+    tmp = library.with_name(f"{library.name}.{tag}")
     if not failed:
         link = [nvcc, *LINK_FLAGS, "-o", str(tmp), *map(str, objs)]
         proc = subprocess.run(link, capture_output=True, text=True)
@@ -89,31 +122,38 @@ def build(force: bool = False) -> Path:
             failed.append(("link", proc.returncode, proc.stdout + proc.stderr))
     for obj in objs:
         obj.unlink(missing_ok=True)
-    BUILD_LOG.write_text(log)
+    library.with_suffix(".log").write_text(log)
     if failed:
         raise RuntimeError("nvcc failed:\n" + "\n".join(
             f"{what} ({rc}):\n{out}" for what, rc, out in failed))
-    os.replace(tmp, LIBRARY)   # atomic: concurrent builders never see half
-    return LIBRARY
+    os.replace(tmp, library)   # atomic: concurrent builders never see half
+    return library
+
+
+def load(path: Path) -> ctypes.CDLL:
+    """``path`` loaded with ``ctypes``, every entry point of
+    :data:`_SIGNATURES` it has typed."""
+    lib = ctypes.CDLL(str(path))
+    for name, argtypes in _SIGNATURES.items():
+        if hasattr(lib, name):
+            fn = getattr(lib, name)
+            fn.argtypes = argtypes
+            fn.restype = ctypes.c_int
+    return lib
 
 
 def library() -> ctypes.CDLL:
     """The loaded kernel library, built on first use."""
     global _lib
     if _lib is None:
-        lib = ctypes.CDLL(str(build()))
-        for name, argtypes in _SIGNATURES.items():
-            fn = getattr(lib, name)
-            fn.argtypes = argtypes
-            fn.restype = ctypes.c_int
-        _lib = lib
+        _lib = load(build())
     return _lib
 
 
-def ptxas_report(kernel: str) -> list[str]:
+def ptxas_report(kernel: str, log: Path = BUILD_LOG) -> list[str]:
     """The ``-Xptxas -v`` lines of the last build about ``kernel`` (a
     substring of its mangled name): stack, spills, registers, barriers."""
-    lines = BUILD_LOG.read_text().splitlines() if BUILD_LOG.exists() else []
+    lines = log.read_text().splitlines() if log.exists() else []
     out, inside = [], False
     for line in lines:
         if "Compiling entry function" in line:

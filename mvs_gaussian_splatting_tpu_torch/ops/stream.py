@@ -10,7 +10,9 @@ Binning lays all tile instances out in one packed attribute array
 
 :func:`composite_stream` launches the hand-written CUDA kernel
 ``csrc/stream_fwd.cu`` for CUDA tensors and runs its plain version for CPU
-tensors. It is differentiable in ``attrs`` and ``bg``: its backward is
+tensors. The kernels walk warps of compact 8×4 pixel blocks and skip an
+entry for a warp its cull box misses (:func:`cull_box`), which changes no
+output. It is differentiable in ``attrs`` and ``bg``: its backward is
 :func:`composite_stream_bwd`, which launches ``csrc/stream_bwd.cu`` or
 ``csrc/stream_bwd_fast.cu`` for CUDA tensors and runs its plain version for
 CPU tensors. Two modes, as in the JAX package:
@@ -65,8 +67,15 @@ def _check(attrs, seg_start, counts, bg, tile_ids, tile_w, tile_h):
                          "one thread per pixel, at most 1024 per tile")
 
 
+def heaviest_first(counts):
+    """The order in which B1, B3f and B3b walk the tiles: by count,
+    descending (int64 tile indices), so that the last wave of CTAs holds
+    the light tiles."""
+    return torch.argsort(counts, descending=True)
+
+
 def _composite_fwd(attrs, seg_start, counts, bg, tile_ids, tiles_x: int,
-                   tile_w: int, tile_h: int, fast: bool = False):
+                   tile_w: int, tile_h: int, fast: bool, order):
     global launches, fast_launches
     _check(attrs, seg_start, counts, bg, tile_ids, tile_w, tile_h)
     if attrs.device.type == "cpu":
@@ -87,8 +96,9 @@ def _composite_fwd(attrs, seg_start, counts, bg, tile_ids, tiles_x: int,
     with torch.cuda.device(attrs.device):
         err = getattr(lib, name)(
             attrs.data_ptr(), attrs.shape[1], seg_start.data_ptr(),
-            counts.data_ptr(), tile_ids.data_ptr(), bg.data_ptr(),
-            out.data_ptr(), final_t.data_ptr(), t, tiles_x, tile_w, tile_h,
+            counts.data_ptr(), tile_ids.data_ptr(), order.data_ptr(),
+            bg.data_ptr(), out.data_ptr(), final_t.data_ptr(), t, tiles_x,
+            tile_w, tile_h,
             torch.cuda.current_stream(attrs.device).cuda_stream)
     if err != 0:
         raise RuntimeError(f"{name} launch failed: CUDA error {err}")
@@ -101,15 +111,17 @@ def _composite_fwd(attrs, seg_start, counts, bg, tile_ids, tiles_x: int,
 
 class _StreamComposite(torch.autograd.Function):
     """B1 / B3f forward, B2 / B3b backward; gradients flow to ``attrs`` and
-    ``bg``."""
+    ``bg``. The tile order is taken once, for both kernels."""
 
     @staticmethod
     def forward(ctx, attrs, seg_start, counts, bg, tile_ids, tiles_x, tile_w,
                 tile_h, fast):
+        order = heaviest_first(counts) if counts.is_cuda else None
         out, final_t = _composite_fwd(attrs, seg_start, counts, bg, tile_ids,
-                                      tiles_x, tile_w, tile_h, fast)
+                                      tiles_x, tile_w, tile_h, fast, order)
         ctx.geometry = (tiles_x, tile_w, tile_h)
         ctx.fast = fast
+        ctx.order = order
         ctx.save_for_backward(attrs, seg_start, counts, bg, tile_ids, out,
                               final_t)
         return out, final_t
@@ -120,7 +132,8 @@ class _StreamComposite(torch.autograd.Function):
             ctx.saved_tensors
         gattrs, g_bg = composite_stream_bwd(
             attrs, seg_start, counts, bg, tile_ids, *ctx.geometry, out,
-            final_t, g_out.contiguous(), g_tfin.contiguous(), fast=ctx.fast)
+            final_t, g_out.contiguous(), g_tfin.contiguous(), fast=ctx.fast,
+            order=ctx.order)
         return gattrs, None, None, g_bg, None, None, None, None, None
 
 
@@ -149,10 +162,12 @@ def _check_bwd(t, p, out, final_t, g_out, g_tfin):
 
 def composite_stream_bwd(attrs, seg_start, counts, bg, tile_ids,
                          tiles_x: int, tile_w: int, tile_h: int, out, final_t,
-                         g_out, g_tfin, fast: bool = False):
+                         g_out, g_tfin, fast: bool = False, order=None):
     """Gradient of :func:`composite_stream`: the forward's inputs, its saved
     outputs (out [T, P, 3], final_T [T, P]) and their cotangents →
-    (gattrs [16, CAP+128], g_bg [3]).
+    (gattrs [16, CAP+128], g_bg [3]). ``order``: the forward's
+    :func:`heaviest_first` of ``counts``, which B3b walks too (taken here
+    when not given); B2 walks the tiles in stream order.
 
     gattrs is zero outside this call's segments, in the entries a tile never
     reaches before its early exit, and in rows 9..15. g_bg = Σ g_out·final_T
@@ -181,13 +196,19 @@ def composite_stream_bwd(attrs, seg_start, counts, bg, tile_ids,
     if t == 0:
         return gattrs, g_bg
     name = "gs_stream_bwd_fast" if fast else "gs_stream_bwd"
+    lib = kernels.library()
     with torch.cuda.device(attrs.device):
-        err = getattr(kernels.library(), name)(
-            attrs.data_ptr(), attrs.shape[1], seg_start.data_ptr(),
-            counts.data_ptr(), tile_ids.data_ptr(), out.data_ptr(),
-            final_t.data_ptr(), g_out.data_ptr(), g_tfin.data_ptr(),
-            gattrs.data_ptr(), t, tiles_x, tile_w, tile_h,
-            torch.cuda.current_stream(attrs.device).cuda_stream)
+        head = (attrs.data_ptr(), attrs.shape[1], seg_start.data_ptr(),
+                counts.data_ptr(), tile_ids.data_ptr())
+        rest = (out.data_ptr(), final_t.data_ptr(), g_out.data_ptr(),
+                g_tfin.data_ptr(), gattrs.data_ptr(), t, tiles_x, tile_w,
+                tile_h, torch.cuda.current_stream(attrs.device).cuda_stream)
+        if fast:
+            if order is None:
+                order = heaviest_first(counts)
+            err = lib.gs_stream_bwd_fast(*head, order.data_ptr(), *rest)
+        else:
+            err = lib.gs_stream_bwd(*head, *rest)
     if err != 0:
         raise RuntimeError(f"{name} launch failed: CUDA error {err}")
     if fast:
@@ -471,6 +492,29 @@ def composite_stream_bwd_fast_plain(attrs, seg_start, counts, bg, tile_ids,
         p = tile_w * tile_h
         return gattrs, g_bg, int(visits.amax(dim=1).sum()) * p if t else 0
     return gattrs, g_bg
+
+
+def cull_box(ca, cb, cc, op):
+    """(hx, hy) float32 half-widths of each entry's cull box: the mirror in
+    PyTorch of ``csrc/stream_common.cuh:cull_box`` (the same formula,
+    margins and order of operations), for the CPU test of its
+    conservativeness (``tests/test_torch_cull.py``). The kernels skip an
+    entry for a warp whose pixel centres all lie outside [x − hx, x + hx] ×
+    [y − hy, y + hy]; −inf: no box (op < 1/255), +inf: never culled."""
+    f32 = torch.float32
+    ca, cb, cc, op = (torch.as_tensor(a, dtype=f32) for a in (ca, cb, cc, op))
+    ac = ca * cc
+    det = ac - cb * cb
+    big_l = (torch.fmax(torch.log(255.0 * op), torch.zeros_like(op))
+             + 1e-3) * 1.002
+    hx = torch.sqrt(2.0 * big_l * cc / det) * 1.001 + 1.0
+    hy = torch.sqrt(2.0 * big_l * ca / det) * 1.001 + 1.0
+    inf = torch.tensor(float("inf"), dtype=f32)
+    whole = ~((ca > 0) & (cc > 0) & (det > 2.5e-3 * ac) & (hx < inf)
+              & (hy < inf))
+    hx, hy = torch.where(whole, inf, hx), torch.where(whole, inf, hy)
+    none = ~(op >= torch.tensor(1.0 / 255.0, dtype=f32))
+    return torch.where(none, -inf, hx), torch.where(none, -inf, hy)
 
 
 def random_stream(seed: int, tiles_x: int = 12, tiles_y: int = 8,

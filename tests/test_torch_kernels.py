@@ -20,7 +20,9 @@ The fast-math kernels (B3f, B3b) are held to their plain versions within
 the JAX package's fast-mode contract (``tests/test_fast_math.py``): 2e-3
 max abs on image and final_T, 5e-3 of each row's largest magnitude on
 gradients; the plain versions take the log-space route of the TPU kernel,
-the kernels a per-pixel loop with __expf and TF32 tensor-core moment sums.
+the kernels a per-pixel loop with TF32 tensor-core moment sums. The
+kernels walk 8×4-pixel warp blocks and skip entries whose cull box misses
+a block (``TestCompactBlocksAndCull``), which must change no output.
 B4 is held to ``composite_padded_plain`` within 2e-4 and B5 to
 ``composite_padded_bwd_plain`` within 1e-5 per plane, as B1 and B2.
 """
@@ -491,6 +493,165 @@ class TestFastKernels:
                                            fast_math=True))
         after = _launch_counts()
         assert [x - y for x, y in zip(after, before)] == [0, 0, 1, 1, 0, 0]
+
+
+def edge_stream(case, seed=11):
+    """A random stream (4×3 tiles, tiles 2 and 3 longer than four batches
+    of either kernel, a fifth of the entries far-centred wide splats) for
+    one edge case of the compact warp blocks and the per-warp cull; returns
+    (stream, whether B3b takes its geometry)."""
+    tw, th = {"odd_24x10": (24, 10), "odd_24x4": (24, 4),
+              "one_warp_8x4": (8, 4), "rows_512x2": (512, 2),
+              "threshold": (16, 16)}.get(case, (32, 16))
+    s = random_stream(seed, tiles_x=4, tiles_y=3, tile_w=tw, tile_h=th,
+                      long_len=2700, far=0.2)
+    a = s["attrs"]
+    rng = np.random.RandomState(seed + 1)
+    ids = np.repeat(np.arange(len(s["counts"])), s["counts"])
+    ox = (ids % s["tiles_x"]) * tw
+    oy = (ids // s["tiles_x"]) * th
+    n = len(ids)
+    if case == "saturate":
+        # tile 2 saturates within its first batch: opaque splats wider than
+        # the tile, centred on it
+        st = s["seg_start"][2]
+        a[0, st:st + 8] = ox[st] + tw / 2
+        a[1, st:st + 8] = oy[st] + th / 2
+        a[2, st:st + 8], a[3, st:st + 8], a[4, st:st + 8] = 1e-4, 0.0, 1e-4
+        a[5, st:st + 8] = 0.99
+    elif case == "graze":
+        # the alpha = 1/255 boundary within a pixel of a block edge
+        sx, sy = rng.uniform(0.5, 20.0, (2, n))
+        rho = rng.choice([0.0, 0.9, 0.999], n)
+        det = (sx * sy) ** 2 * (1 - rho ** 2)
+        a[2, :n], a[3, :n], a[4, :n] = (sy ** 2 / det, -rho * sx * sy / det,
+                                        sx ** 2 / det)
+        op = rng.uniform(0.01, 0.99, n)
+        a[5, :n] = op
+        half = np.sqrt(2 * np.log(255 * op) * a[4, :n]
+                       / (a[2, :n] * a[4, :n] - a[3, :n] ** 2))
+        edge = rng.choice(np.arange(0, tw + 1, 8), n) - 0.5
+        side = rng.choice([-1.0, 1.0], n)
+        a[0, :n] = ox + edge + side * (half + rng.uniform(-1, 1, n))
+        a[1, :n] = oy + rng.uniform(-4, th + 4, n)
+    elif case == "degenerate":
+        pick = rng.rand(n) < 0.2
+        kind = rng.randint(0, 6, n)
+        ca, cb, cc = a[2, :n], a[3, :n], a[4, :n]
+        for k, sel in enumerate(kind[pick] == i for i in range(6)):
+            idx = np.flatnonzero(pick)[sel]
+            if k == 0:
+                cb[idx] = np.sqrt(ca[idx] * cc[idx])       # det = 0
+            elif k == 1:
+                cb[idx] = 2 * np.sqrt(ca[idx] * cc[idx])   # det < 0
+            elif k == 2:
+                ca[idx] = 0.0
+            elif k == 3:
+                ca[idx] = np.nan
+            elif k == 4:
+                cc[idx] = np.inf
+            else:
+                cb[idx] = -np.inf
+    elif case == "threshold":
+        # opacities one float either side of 1/255, centred on pixels
+        pick = rng.rand(n) < 0.3
+        m = np.float32(1.0 / 255.0)
+        a[5, :n][pick] = np.where(rng.rand(int(pick.sum())) < 0.5,
+                                  np.nextafter(m, np.float32(0)),
+                                  np.nextafter(m, np.float32(1)))
+        a[0, :n][pick] = ox[pick] + rng.randint(0, tw, int(pick.sum()))
+        a[1, :n][pick] = oy[pick] + rng.randint(0, th, int(pick.sum()))
+    p = tw * th
+    return s, p % 32 == 0 and max(tw, th) <= 64
+
+
+def finite_row_gaps(got, want, call, batch=64):
+    """bwd_gaps over the values both have finite, after checking where one
+    side is not finite. That is allowed only where the entry's centre,
+    conic or opacity is itself not finite (the closed forms then give NaN
+    from zero moments), the other side holds exactly zero, and that side
+    never reached the entry: the plain version stops at the first multiple
+    of 32 entries where every tile is done; the kernel (``batch`` =
+    ``kBatch`` of ``csrc/stream_bwd_fast.cu``) at the first batch that opens
+    with its own tile done, so no earlier than the start of the batch that
+    holds the entry where the plain replay finds the tile done."""
+    attrs, seg_start, counts, _, tile_ids, tiles_x, tile_w, tile_h = call
+    width, t = attrs.shape[1], seg_start.shape[0]
+    dev = attrs.device
+    stop = 0
+    done_at = torch.full((t,), width, dtype=torch.int64, device=dev)
+    for k, _, in_seg, *_, live in stream._fast_replay(
+            attrs, seg_start, counts, tile_ids, tiles_x, tile_w, tile_h):
+        stop = k + 1
+        done_at[in_seg & ~live.any(1) & (done_at == width)] = k
+    cnt = torch.minimum(counts.long(), (width - seg_start.long()).clamp(min=0))
+    ids = torch.repeat_interleave(torch.arange(t, device=dev), cnt)
+    pos = (torch.arange(ids.numel(), device=dev)
+           - torch.repeat_interleave(torch.cumsum(cnt, 0) - cnt, cnt))
+    cols = seg_start.long()[ids] + pos
+    past_plain = torch.zeros(width, dtype=torch.bool, device=dev)
+    past_plain[cols] = pos >= stop
+    past_kernel = torch.zeros(width, dtype=torch.bool, device=dev)
+    past_kernel[cols] = pos >= done_at[ids] // batch * batch
+    bad = ~torch.isfinite(attrs[:6]).all(0)
+    fin_w, fin_g = torch.isfinite(want), torch.isfinite(got)
+    ok = ((fin_w == fin_g)
+          | (bad & past_plain & fin_w & (want == 0))
+          | (bad & past_kernel & fin_g & (got == 0)))
+    assert bool(ok.all()), (
+        f"{int((~ok).sum())} values non-finite on one side only, e.g. "
+        f"(row, column) {torch.nonzero(~ok)[:4].tolist()}")
+    both = fin_w & fin_g
+    return bwd_gaps(torch.where(both, got, 0.0), torch.where(both, want, 0.0))
+
+
+@pytest.mark.gpu
+class TestCompactBlocksAndCull:
+    """B1, B3f and B3b on the edge cases of the redesign: odd tile shapes
+    (blocks overhanging the tile; an 8×4 tile, one warp, fewer threads than
+    B3b's 64-entry batch; a tile too thin for 8×4 blocks within 1,024
+    threads, whose warps take pixel rows), more than four batches, a tile
+    that saturates in its first batch, cull boxes grazing a block, degenerate
+    conics, opacities at 1/255. B1 is bit-equal to its plain version (the
+    cull is exact), B3f within 2e-3, B3b within 5e-3 per row with exact
+    zeros outside the segments and in rows 9-15."""
+
+    @pytest.mark.parametrize("case", ["odd_24x10", "odd_24x4",
+                                      "one_warp_8x4", "rows_512x2",
+                                      "saturate", "graze", "degenerate",
+                                      "threshold"])
+    def test_kernels_match_plain(self, cuda, case):
+        s, with_bwd = edge_stream(case)
+        a = _args(s, cuda)
+        out, tfin = composite_stream(*a)
+        ref, rtfin = composite_stream_plain(*a)
+        torch.cuda.synchronize()
+        gap = max(float((out - ref).abs().max()),
+                  float((tfin - rtfin).abs().max()))
+        assert torch.equal(out, ref) and torch.equal(tfin, rtfin), gap
+        fout, ftfin = composite_stream(*a, fast=True)
+        fref, frtfin = stream.composite_stream_fast_plain(*a)
+        fgap = max(float((fout - fref).abs().max()),
+                   float((ftfin - frtfin).abs().max()))
+        msg = f"{case}: B1 bit-equal, B3f vs plain {fgap:.2e}"
+        assert fgap <= FAST_TOL, msg
+        if case == "saturate":    # tile 2 ends within its first 8 entries
+            one = [a[0], a[1][2:3], a[2][2:3], a[3], a[4][2:3], *a[5:]]
+            _, _, visits = composite_stream_plain(*one, count_visits=True)
+            assert visits <= 8 * s["tile_w"] * s["tile_h"]
+        if with_bwd:
+            g_out, g_tfin = (c.to(cuda) for c in _cotangents(s, 3))
+            got, _ = stream.composite_stream_bwd(*a, fout, ftfin, g_out,
+                                                 g_tfin, fast=True)
+            want, _ = stream.composite_stream_bwd_fast_plain(
+                *a, fref, frtfin, g_out, g_tfin)
+            gaps = finite_row_gaps(got[:9], want[:9], a)
+            msg += "; B3b per-row " + " ".join(f"{g:.1e}" for g in gaps)
+            assert max(gaps) <= FAST_REL, msg
+            outside = ~_segment_mask(s, cuda)
+            assert bool((got[:, outside] == 0).all())
+            assert bool((got[9:] == 0).all())
+        print(msg)
 
 
 def _padded_args(s, device):
