@@ -16,10 +16,11 @@ padded-table backend. Phases, one JSON line each:
    nvcc, and at the same time the section-clock library of
    ``profile_kernels.py`` (``-DGS_SECTION_CLOCKS``, a measuring build the
    port never runs); each kernel's ``-Xptxas -v`` register / shared-memory
-   line, and B1's, B3f's and B3b's registers and resident CTAs per SM
+   line, and B1's, B3f's, B3b's, B2's and B5's registers and resident CTAs
+   per SM at 16×16 and 32×16 tiles
    (``cudaOccupancyMaxActiveBlocksPerMultiprocessor`` through the
    library's own launch configuration): B3b needs at least 32 resident
-   warps per SM at 32×16 tiles and no spills;
+   warps per SM at 32×16 tiles and no spills, B2 and B5 no spills;
 3. kernel vs plain version: ``stream_fwd`` (B1) against
    ``composite_stream_plain`` on one real view's stream and on a random
    stream made from ``--seed`` (the 32 heaviest tiles plus 32 drawn with a
@@ -41,8 +42,9 @@ padded-table backend. Phases, one JSON line each:
    ``composite_stream_bwd_plain`` with a random ``g_out`` and a nonzero
    ``g_tfin`` made from ``--seed``, on one full test view at the reference
    layout, a 64-tile subset of it, and random streams on 16×16 and 32×16
-   tiles: per attribute row max |kernel − plain| ≤ 1e-5 · max |plain|, and
-   exact zeros outside the segments and in rows 9..15;
+   tiles: per attribute row max |kernel − plain| ≤ 1e-5 · max |plain|,
+   exact zeros outside the segments and in rows 9..15, and two launches
+   equal to the bit;
 6b. fast_vs_plain: the fast-math kernels (B3f in ``csrc/stream_fwd.cu``,
    B3b ``csrc/stream_bwd_fast.cu``) against ``composite_stream_fast_plain``
    / ``composite_stream_bwd_fast_plain`` on the same four streams (the
@@ -53,7 +55,9 @@ padded-table backend. Phases, one JSON line each:
 6c. padded_vs_plain: B4 (``csrc/padded_fwd.cu``) and B5
    (``csrc/padded_bwd.cu``) against ``composite_padded_plain`` /
    ``composite_padded_bwd_plain`` on random tables at 16×16 and 32×16:
-   within 2e-4 max abs and 1e-5 per plane, exact zeros in invalid slots;
+   within 2e-4 max abs and 1e-5 per plane, exact zeros in invalid and
+   uncounted slots (B5 writes them itself), two B5 launches equal to the
+   bit;
 7. train_resume, the training path at the trained size: a COLMAP dataset
    of the 15 views (their ground-truth PNGs and poses, 13 train and 2 test
    under ``--eval``) and a checkpoint of the retained model at iteration
@@ -73,9 +77,10 @@ padded-table backend. Phases, one JSON line each:
    median step time after the traced window and the traced window's host
    and device time per step in the step's forward, backward and update
    ranges; on 5 train views' streams of the exact arm's model, B2's, B3f's
-   and B3b's times, plain times, gaps and bounds, and B1's time and bound
-   beside B3f's. Then the exact resume at a tenth of every learning rate,
-   measured only: its test and train PSNR trajectories;
+   and B3b's times (each wrapper takes its own tile order), plain times,
+   gaps and bounds, and B1's time and bound beside B3f's; B2's, B3f's and
+   B3b's section splits. Then the exact resume at a tenth of every
+   learning rate, measured only: its test and train PSNR trajectories;
 8. train_init, the densification machinery in the default fast-math mode:
    54,000 points sampled from the retained model's means with N(0, 0.02)
    noise, colours from its SH DC term, 600 steps densifying every 100 from
@@ -91,8 +96,9 @@ padded-table backend. Phases, one JSON line each:
    capacity covers the fullest tile (both overflow counters zero, the key
    count and peak memory printed), each image within 2e-4 max abs of the
    same view's stream render on the clip-free layout (zero overflow
-   there too); B4's and B5's times, plain times, gaps and bounds on the
-   first view's tables; then 20 training steps through ``cli/train.py``
+   there too); B4's and B5's times, plain times, gaps, bounds and section
+   splits on the first view's tables; then 20 training steps through
+   ``cli/train.py``
    with ``--backend pallas`` from the same checkpoint: finite losses, one
    B4 and one B5 launch per step;
 9b. padded_cli: ``cli/render.py --backend pallas`` on the retained model
@@ -101,9 +107,10 @@ padded-table backend. Phases, one JSON line each:
    its overflow counters, PSNR against ground truth, time and peak memory
    are reported (its clipping is counted, not held);
 
-10. sections: the time split of B1 (phase 5's 15 views), B3f and B3b
-   (phase 7's 5 training streams) by section from the section-clock
-   build (``profile_kernels.kernel_split``), their warp-step counts and
+10. sections: the time split of B1 (phase 5's 15 views), B3f, B3b and B2
+   (phase 7's 5 training streams), B4 and B5 (phase 9's tables) by section
+   from the section-clock build (``profile_kernels.kernel_split``), each
+   kernel's time alone, their warp-step counts and
    last-wave drain, the SASS instructions per warp-step of the loop that
    holds the exp (``cuobjdump -sass``), the SM clock under load, the
    issue-rate floor those give, and a work bound (the bound's operations
@@ -268,12 +275,14 @@ def load_png(path):
 def bwd_check(args, out, tfin, g_out, g_tfin):
     """B2 on one stream against its plain version: (per-row relative gaps,
     max abs error, whether columns outside the segments and rows 9..15 are
-    exactly zero, the plain version's visited pairs)."""
+    exactly zero, whether a second launch gives the same bits, the plain
+    version's visited pairs)."""
     import torch
 
     from mvs_gaussian_splatting_tpu_torch.ops import stream
     got, got_bg = stream.composite_stream_bwd(*args, out, tfin, g_out,
                                               g_tfin)
+    again, _ = stream.composite_stream_bwd(*args, out, tfin, g_out, g_tfin)
     torch.cuda.synchronize()
     want, want_bg, visits = stream.composite_stream_bwd_plain(
         *args, out, tfin, g_out, g_tfin, count_visits=True)
@@ -281,6 +290,7 @@ def bwd_check(args, out, tfin, g_out, g_tfin):
             "max_abs_err": float((got - want).abs().max()),
             "g_bg_err": float((got_bg - want_bg).abs().max()),
             "zeros_outside": outside_segments(got, args[1], args[2]),
+            "deterministic": bool(torch.equal(got, again)),
             "visits": visits}
 
 
@@ -351,7 +361,8 @@ def bwd_vs_plain(view_stream, cam, subset, tiles_x, cfg, seed, faults):
     emit({"phase": "bwd_vs_plain", "tolerance_rel": BWD_REL,
           "cases": cases})
     for name, c in cases.items():
-        if max(c["rel_gap"]) > BWD_REL or not c["zeros_outside"]:
+        if (max(c["rel_gap"]) > BWD_REL or not c["zeros_outside"]
+                or not c["deterministic"]):
             faults.append(f"backward kernel vs plain, {name}: {c}")
     return {"max_abs_err": max(c["max_abs_err"] for c in cases.values())}
 
@@ -405,8 +416,9 @@ def padded_check(args, seed, timed=False):
     """B4 and B5 on one set of tables against their plain versions, B5 and
     its plain version given B4's outputs: (B4's max abs gap, B5's per-plane
     relative gaps over the 6 planes and 3 colours, whether every invalid or
-    uncounted slot's gradient is exactly zero, the visited pairs; with
-    ``timed``, kernel and plain times and bounds)."""
+    uncounted slot's gradient is exactly zero, whether a second B5 launch
+    gives the same bits, the visited pairs; with ``timed``, kernel and plain
+    times and bounds, and B4's and B5's launch arguments)."""
     import torch
 
     from mvs_gaussian_splatting_tpu_torch.ops import composite
@@ -417,6 +429,7 @@ def padded_check(args, seed, timed=False):
     g_out, g_tfin = cotangents(t, p, seed, planes.device)
     gpl, grgb, _ = composite.composite_padded_bwd(*args, out, tfin, g_out,
                                                   g_tfin)
+    again = composite.composite_padded_bwd(*args, out, tfin, g_out, g_tfin)
     torch.cuda.synchronize()
     ref, rtfin = composite.composite_padded_plain(*args)
     wpl, wrgb, _, visits = composite.composite_padded_bwd_plain(
@@ -429,10 +442,12 @@ def padded_check(args, seed, timed=False):
                                    torch.cat([wpl, wrgb.permute(2, 0, 1)])),
            "zeros_dead": bool((gpl[:, dead] == 0).all())
            and bool((grgb[dead] == 0).all()),
+           "deterministic": bool(torch.equal(gpl, again[0]))
+           and bool(torch.equal(grgb, again[1])),
            "dead_slots": int(dead.sum()), "visits": visits,
            "max_abs_err": max(float((gpl - wpl).abs().max()),
                               float((grgb - wrgb).abs().max()))}
-    del ref, rtfin, wpl, wrgb
+    del ref, rtfin, wpl, wrgb, again
     if not timed:
         return res
     res["b4_ms"] = cuda_ms(lambda: composite._padded_fwd(*args), 5)
@@ -451,6 +466,8 @@ def padded_check(args, seed, timed=False):
     res["live_slots"] = live
     res["b4_bound"] = bound(b4_bytes, FLOPS_PER_PAIR * visits)
     res["b5_bound"] = bound(b5_bytes, FLOPS_PER_PAIR_BWD * visits)
+    res["b4_bytes"], res["b5_bytes"] = b4_bytes, b5_bytes
+    res["b5_inputs"] = (out, tfin, g_out, g_tfin)
     return res
 
 
@@ -480,7 +497,7 @@ def padded_vs_plain(seed, faults):
           "tolerance_rel": BWD_REL, "cases": cases})
     for name, c in cases.items():
         if (c["fwd_max_abs"] > TOL or max(c["bwd_rel_gap"]) > BWD_REL
-                or not c["zeros_dead"]):
+                or not c["zeros_dead"] or not c["deterministic"]):
             faults.append(f"padded kernels vs plain, {name}: {c}")
     return {"fwd_max_abs": max(c["fwd_max_abs"] for c in cases.values()),
             "max_abs_err": max(c["max_abs_err"] for c in cases.values())}
@@ -551,8 +568,8 @@ def kernels_on_views(params, aux, cams, base_cfg, seed, libs):
     backward given its own forward's outputs), each kernel's time over
     repeated launches, its plain version's time, its gap and its bound; and
     B1's time and bound on the same streams, beside B3f's. With ``libs`` =
-    (the kernel library, its section-clock build): B3f's and B3b's section
-    splits, and the SM clock while B3b runs on the first stream."""
+    (the kernel library, its section-clock build): B2's, B3f's and B3b's
+    section splits, and the SM clock while B3b runs on the first stream."""
     import torch
 
     from mvs_gaussian_splatting_tpu_torch import profile_kernels
@@ -615,6 +632,8 @@ def kernels_on_views(params, aux, cams, base_cfg, seed, libs):
                     *call, ref, rtfin, g_out, g_tfin))
             fchk = fast_check(call, g_out, g_tfin)
             splits = {
+                "b2": profile_kernels.kernel_split(
+                    *libs, "stream_bwd", call, (out, tfin, g_out, g_tfin)),
                 "b3f": profile_kernels.kernel_split(*libs, "stream_fwd_fast",
                                                     call),
                 "b3b": profile_kernels.kernel_split(
@@ -824,7 +843,7 @@ def train_resume(tmp, data, seed, faults, libs):
               "b2": mean_kernel(rows, "b2"), "b3f": mean_kernel(rows, "b3f"),
               "b3b": mean_kernel(rows, "b3b"), "clock": clock,
               "sections": {k: [r["sections"][k] for r in rows]
-                           for k in ("b3f", "b3b")}}
+                           for k in ("b2", "b3f", "b3b")}}
     result["b2"]["max_abs_err"] = max(r["b2"]["max_abs_err"] for r in rows)
     result["b3f"]["max_abs_err"] = max(r["b3f"]["max_abs_err"] for r in rows)
     result["b3b"]["max_abs_err"] = max(r["b3b"]["max_abs_err"] for r in rows)
@@ -995,11 +1014,14 @@ def padded_tables(params, cam, cfg):
                 bins.valid.to(torch.float32), bins.counts, tiles_x), bins
 
 
-def padded_phase(params, test_cams, free_cfg, data, tmp, seed, faults):
+def padded_phase(params, test_cams, free_cfg, data, tmp, seed, faults,
+                 libs):
     """Phase 9: the padded backend (B4 / B5) renders test views on a
-    layout without overflow, against the stream render, then trains."""
+    layout without overflow, against the stream render, then trains.
+    ``libs``: see kernels_on_views (B4's and B5's section splits)."""
     import torch
 
+    from mvs_gaussian_splatting_tpu_torch import profile_kernels
     from mvs_gaussian_splatting_tpu_torch.cli.render import \
         measure_tile_needs
     from mvs_gaussian_splatting_tpu_torch.cli.train import main as train_main
@@ -1071,6 +1093,9 @@ def padded_phase(params, test_cams, free_cfg, data, tmp, seed, faults):
     args, bins = padded_tables(params, views[0], cfg)
     args = list(args[:4]) + [bg, args[4], tw, th]
     chk = padded_check(args, seed + 7, timed=True)
+    splits = {"b4": profile_kernels.kernel_split(*libs, "padded_fwd", args),
+              "b5": profile_kernels.kernel_split(*libs, "padded_bwd", args,
+                                                 chk.pop("b5_inputs"))}
     slots = int(bins.valid.numel())
     del args, bins
 
@@ -1092,7 +1117,7 @@ def padded_phase(params, test_cams, free_cfg, data, tmp, seed, faults):
           "peak_memory_bytes": peak, "held_before_bytes": held,
           "table_slots": slots, "tables_check": {
               key: v for key, v in chk.items()
-              if not key.endswith(("_ms", "_bound"))},
+              if not key.endswith(("_ms", "_bound", "_bytes"))},
           "b4": {"ms": chk["b4_ms"], "plain_ms": chk["b4_plain_ms"],
                  "bound_ms": chk["b4_bound"][0],
                  "bound_by": chk["b4_bound"][1]},
@@ -1107,7 +1132,7 @@ def padded_phase(params, test_cams, free_cfg, data, tmp, seed, faults):
                 or row["overflow_capacity"] or any(row["stream"].values())):
             faults.append(f"padded render of {row['view']}: {row}")
     if (chk["fwd_max_abs"] > TOL or max(chk["bwd_rel_gap"]) > BWD_REL
-            or not chk["zeros_dead"]):
+            or not chk["zeros_dead"] or not chk["deterministic"]):
         faults.append(f"padded kernels vs plain on {views[0].image_name}: "
                       f"{chk}")
     if len(losses) != PADDED_STEPS or not all(np.isfinite(losses)):
@@ -1117,14 +1142,16 @@ def padded_phase(params, test_cams, free_cfg, data, tmp, seed, faults):
             or train_launches["padded_bwd"] != PADDED_STEPS):
         faults.append(f"padded launches: render {render_launches}, train "
                       f"{train_launches}")
-    return {"launches": launches,
+    return {"launches": launches, "sections": splits,
             "b4": {"ms": chk["b4_ms"], "plain_ms": chk["b4_plain_ms"],
                    "bound_ms": chk["b4_bound"][0],
                    "bound_by": chk["b4_bound"][1],
+                   "bytes": chk["b4_bytes"],
                    "max_abs_err": chk["fwd_max_abs"]},
             "b5": {"ms": chk["b5_ms"], "plain_ms": chk["b5_plain_ms"],
                    "bound_ms": chk["b5_bound"][0],
                    "bound_by": chk["b5_bound"][1],
+                   "bytes": chk["b5_bytes"],
                    "max_abs_err": chk["max_abs_err"]}}
 
 
@@ -1227,27 +1254,17 @@ def main(argv=None):
             job.result()
     lib = kernels.library()
     libs = (lib, kernels.load(sec_path))
-    ptxas = {name: kernels.ptxas_report(mangled) for name, mangled in (
-        ("stream_fwd", "17stream_fwd_kernelILb0E"),
-        ("stream_fwd_fast", "17stream_fwd_kernelILb1E"),
-        ("stream_bwd", "17stream_bwd_kernel"),
-        ("stream_bwd_fast", "22stream_bwd_fast_kernel"),
-        ("padded_fwd", "17padded_fwd_kernel"),
-        ("padded_bwd", "17padded_bwd_kernel"))}
-    # warps per CTA: 8x4-pixel warp blocks, 8 at 16x16, 16 at 32x16
+    ptxas = profile_kernels.ptxas(kernels.BUILD_LOG)
     occupancy = {f"{tw}x16": profile_kernels.occupancy(lib, tw, 16)
                  for tw in (16, 32)}
-    for geometry, kernels_occ in occupancy.items():
-        for o in kernels_occ.values():
-            o["warps_per_sm"] = o["ctas_per_sm"] * (
-                8 if geometry == "16x16" else 16)
     emit({"phase": "build", "seconds": round(time.time() - t0, 2),
           "library": os.path.relpath(kernels.LIBRARY, ROOT),
           "ptxas": ptxas, "occupancy": occupancy})
     b3b_warps = occupancy["32x16"]["stream_bwd_fast"]["warps_per_sm"]
-    b3b_spills = [line for line in ptxas["stream_bwd_fast"]
-                  if any(int(n) for n in re.findall(
-                      r"(\d+) bytes spill (?:stores|loads)", line))]
+    spills = {name: [line for line in ptxas[name] if any(
+        int(n) for n in re.findall(r"(\d+) bytes spill (?:stores|loads)",
+                                   line))]
+              for name in ("stream_bwd_fast", "stream_bwd", "padded_bwd")}
 
     # the model, its cameras and the measured eval layout
     t0 = time.time()
@@ -1336,9 +1353,11 @@ def main(argv=None):
                                    (syn["counts"] > 2560).sum())}})
     # checks are collected and raised after the last measurement
     faults = []
-    if b3b_warps < MIN_WARPS_B3B or b3b_spills:
+    if b3b_warps < MIN_WARPS_B3B:
         faults.append(f"B3b at 32x16: {b3b_warps} resident warps per SM "
-                      f"(want >= {MIN_WARPS_B3B}), spills {b3b_spills}")
+                      f"(want >= {MIN_WARPS_B3B})")
+    if any(spills.values()):
+        faults.append(f"register spills: {spills}")
     if max(gaps.values()) > TOL:
         faults.append(f"kernel disagrees with its plain version: {gaps}")
 
@@ -1497,7 +1516,7 @@ def main(argv=None):
         resume = train_resume(tmp, data, args.seed, faults, libs)
         init = train_init(tmp, data, args.seed, faults)
         padded = padded_phase(params, test_cams, free, data, tmp, args.seed,
-                              faults)
+                              faults, libs)
         cli = padded_cli(tmp, data, faults)
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
@@ -1507,33 +1526,51 @@ def main(argv=None):
     bounds = {"stream_fwd": float(np.mean([max(v["bytes_ms"], v["flops_ms"])
                                            for v in per_view])),
               "stream_fwd_fast": resume["b3f"]["bound_ms"],
-              "stream_bwd_fast": resume["b3b"]["bound_ms"]}
+              "stream_bwd_fast": resume["b3b"]["bound_ms"],
+              "stream_bwd": resume["b2"]["bound_ms"],
+              "padded_fwd": padded["b4"]["bound_ms"],
+              "padded_bwd": padded["b5"]["bound_ms"]}
     split_rows = {"stream_fwd": b1_splits,
                   "stream_fwd_fast": resume["sections"]["b3f"],
-                  "stream_bwd_fast": resume["sections"]["b3b"]}
+                  "stream_bwd_fast": resume["sections"]["b3b"],
+                  "stream_bwd": resume["sections"]["b2"],
+                  "padded_fwd": [padded["sections"]["b4"]],
+                  "padded_bwd": [padded["sections"]["b5"]]}
+    # phase 9's padded tables are on the clip-free eval layout
     layout = {"stream_fwd": "16x16", "stream_fwd_fast": "32x16",
-              "stream_bwd_fast": "32x16"}
+              "stream_bwd_fast": "32x16", "stream_bwd": "32x16",
+              "padded_fwd": f"{free.tile_w}x{free.tile_h}",
+              "padded_bwd": f"{free.tile_w}x{free.tile_h}"}
     nbytes = {"stream_fwd": float(np.mean([v["bytes"] for v in per_view])),
               "stream_fwd_fast": resume["b3f"]["bytes"],
-              "stream_bwd_fast": resume["b3b"]["bytes"]}
+              "stream_bwd_fast": resume["b3b"]["bytes"],
+              "stream_bwd": resume["b2"]["bytes"],
+              "padded_fwd": padded["b4"]["bytes"],
+              "padded_bwd": padded["b5"]["bytes"]}
     pair_ops = {"stream_fwd": (FLOPS_PER_PAIR, 0.0),
                 "stream_fwd_fast": (FLOPS_PER_PAIR, 0.0),
                 "stream_bwd_fast": (FLOPS_PER_PAIR_FAST_BWD,
-                                    MMA_FLOPS_PER_PAIR)}
+                                    MMA_FLOPS_PER_PAIR),
+                "stream_bwd": (FLOPS_PER_PAIR_BWD, 0.0),
+                "padded_fwd": (FLOPS_PER_PAIR, 0.0),
+                "padded_bwd": (FLOPS_PER_PAIR_BWD, 0.0)}
     sections = {}
     for name, rows in split_rows.items():
         agg = profile_kernels.aggregate(rows, sass.get(name), mhz)
         c = agg["counts"]
         # the bound on the work this run's data needs: contributing pairs
-        # and the box test of each live warp-step, not every visited pair
+        # and the box test of each live warp-step (B4 has no cull), not
+        # every visited pair
+        box = 0 if name == "padded_fwd" else BOX_TEST_OPS
         work = bound(nbytes[name],
                      pair_ops[name][0] * c["pairs_contributing"]
-                     + BOX_TEST_OPS * c["warp_steps"],
+                     + box * c["warp_steps"],
                      pair_ops[name][1] * c["pairs_contributing"])
         sections[name] = dict(agg, bound_ms=bounds[name],
                               work_bound_ms=work[0], work_bound_by=work[1],
                               layout=layout[name],
-                              **occupancy[layout[name]][name])
+                              **occupancy.get(layout[name], {}).get(name,
+                                                                    {}))
     emit({"phase": "sections", "card": smi, "clock": resume["clock"],
           "kernels": sections})
     paths = {"render_slice": launches,

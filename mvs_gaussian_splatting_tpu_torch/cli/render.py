@@ -32,6 +32,7 @@ from ..ops.binning import adaptive_tier_layout, stream_instance_bound
 from ..ops.preprocess import preprocess
 from ..ops.rasterize import widen_eval_budgets
 from ..ops.render import render
+from ..ops.stream import tile_limit
 from ..train.config import ModelConfig, PipelineConfig, load_cfg_args
 from ..train.loop import raster_config_from_pipe
 from ..utils.system import search_max_iteration
@@ -156,6 +157,12 @@ def main(argv=None):
     parser.add_argument("--device", default="cuda",
                         help="torch device to render on (default cuda)")
     args = parser.parse_args(argv)
+    # the composite kernels' limits, before any data is read (rendering is
+    # exact; "jnp" runs no kernel)
+    why = (None if args.backend == "jnp"
+           else tile_limit(args.tile_w, args.tile_h))
+    if why:
+        parser.error(f"--tile_w {args.tile_w} --tile_h {args.tile_h}: {why}")
     device = torch.device(args.device)
 
     try:

@@ -16,6 +16,7 @@ import uuid
 
 import torch
 
+from ..ops.stream import tile_limit
 from ..train.config import (ModelConfig, OptimizationConfig, PipelineConfig,
                             TrainRunConfig)
 from ..train.loop import train
@@ -37,6 +38,14 @@ def main(argv=None):
     parser.add_argument("--device", default="cuda",
                         help="torch device to train on (default cuda)")
     args = parser.parse_args(argv)
+    # the composite kernels' limits, before any data is read: fast math
+    # reaches the stream backend only; "jnp" runs no kernel
+    fast_kernel = (args.fast_math and args.backend in ("auto", "stream")
+                   and torch.device(args.device).type == "cuda")
+    why = (None if args.backend == "jnp"
+           else tile_limit(args.tile_w, args.tile_h, fast_kernel))
+    if why:
+        parser.error(f"--tile_w {args.tile_w} --tile_h {args.tile_h}: {why}")
     if args.ip:
         raise NotImplementedError("the network viewer (--ip) is not ported "
                                   "(ROADMAP A14)")

@@ -31,8 +31,10 @@
 // tile). The design is B1's: one CTA per tile, one thread per pixel, T and
 // the colour sum in registers, the table staged through shared memory in
 // batches of P slots, the tile ending at the first batch boundary where
-// every pixel is done.
+// every pixel is done. Built with -DGS_SECTION_CLOCKS (profile_kernels.py)
+// it counts its warp-steps and splits its time as B1 does (sections.cuh).
 
+#include "sections.cuh"
 #include "stream_common.cuh"
 
 namespace {
@@ -57,13 +59,17 @@ __global__ void padded_fwd_kernel(const float* __restrict__ planes,
   const long long plane = static_cast<long long>(n_tiles) * k_cap;
   const long long row0 = static_cast<long long>(t) * k_cap;
   const int count = max(0, min(counts[t], k_cap));
+  GS_SEC_TILE_BEGIN();
+  GS_SEC_INIT();
 
   float trans = 1.0f;
   float acc[3] = {0.0f, 0.0f, 0.0f};
   bool done = false;
 
   for (int base = 0; base < count; base += n_pix) {
+    GS_SEC_MARK(1);
     if (__syncthreads_count(!done) == 0) break;
+    GS_SEC_MARK(3);
     const int n = min(n_pix, count - base);
     if (p < n) {
       const long long e = row0 + base + p;
@@ -74,15 +80,43 @@ __global__ void padded_fwd_kernel(const float* __restrict__ planes,
       for (int c = 0; c < 3; ++c) stage[(6 + c) * n_pix + p] = rgb[3 * e + c];
     }
     __syncthreads();
+    GS_SEC_MARK(0);
     if (done) continue;
-    gs::composite_batch<false>(stage, n_pix, n, px, py, trans, acc, done);
+    // the pixel's front-to-back walk over the batch, T, the colour sum and
+    // the done flag in registers (row r of slot k at stage[r n_pix + k])
+    for (int k = 0; k < n; ++k) {
+      GS_SEC_COUNT(0);
+      GS_SEC_COUNT_LANE(2);
+      gs::Entry e;
+      if (!gs::entry_alpha(stage[k], stage[n_pix + k], stage[2 * n_pix + k],
+                           stage[3 * n_pix + k], stage[4 * n_pix + k],
+                           stage[5 * n_pix + k], px, py, e))
+        continue;
+      GS_SEC_COUNT(1);
+      GS_SEC_COUNT_LANE(4);
+      const float next = gs::transmit<false>(trans, e.alpha);
+      if (next < gs::kMinTransmittance) {
+        done = true;
+        break;
+      }
+      const float w = __fmul_rn(e.alpha, trans);
+#pragma unroll
+      for (int c = 0; c < 3; ++c)
+        acc[c] = gs::accumulate<false>(acc[c], w,
+                                       stage[(6 + c) * n_pix + k]);
+      trans = next;
+    }
   }
+  GS_SEC_MARK(1);
 
   const long long o = static_cast<long long>(t) * n_pix + p;
 #pragma unroll
   for (int c = 0; c < 3; ++c)
     out[3 * o + c] = __fadd_rn(acc[c], __fmul_rn(trans, bg[c]));
   final_t[o] = trans;
+  GS_SEC_MARK(2);
+  GS_SEC_FLUSH();
+  GS_SEC_TILE_END();
 }
 
 }  // namespace
@@ -103,3 +137,5 @@ extern "C" int gs_padded_fwd(const float* planes, const float* rgb,
       tile_w, tile_h);
   return static_cast<int>(cudaGetLastError());
 }
+
+GS_SECTIONS_SETTER(gs_padded_fwd_sections)

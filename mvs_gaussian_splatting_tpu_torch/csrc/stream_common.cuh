@@ -1,8 +1,8 @@
 // Per-entry arithmetic shared by the composite kernels: stream_fwd.cu (B1
-// and its fast-math instantiation), stream_bwd.cu (B2), stream_bwd_fast.cu
-// (B3b), padded_fwd.cu (B4) and padded_bwd.cu (B5); and the tile geometry
-// and per-warp cull of the stream kernels B1, B3f and B3b (the end of the
-// file).
+// and its fast-math instantiation), stream_bwd_fast.cu (B3b), padded_fwd.cu
+// (B4) and exact_bwd.cuh (B2 in stream_bwd.cu, B5 in padded_bwd.cu); and the
+// tile geometry, entry-major staging and per-warp cull of B1, B3f, B3b, B2
+// and B5 (the end of the file).
 //
 // A backward kernel replays its forward and takes the forward's include and
 // terminate decisions from this replay. If one decision or one w differed
@@ -86,101 +86,7 @@ __device__ __forceinline__ float accumulate(float acc, float w, float c) {
   return kFast ? __fmaf_rn(w, c, acc) : __fadd_rn(acc, __fmul_rn(w, c));
 }
 
-// One pixel's front-to-back walk over n staged entries (row r of entry k
-// at stage[r * row_stride + k]; rows 0 x, 1 y, 2-4 conic, 5 opacity, 6-8
-// rgb), carrying T, the colour sum and the done flag in registers.
-template <bool kFast>
-__device__ __forceinline__ void composite_batch(const float* stage,
-                                                int row_stride, int n,
-                                                float px, float py,
-                                                float& trans, float acc[3],
-                                                bool& done) {
-  for (int k = 0; k < n; ++k) {
-    Entry e;
-    if (!entry_alpha(stage[k], stage[row_stride + k],
-                     stage[2 * row_stride + k], stage[3 * row_stride + k],
-                     stage[4 * row_stride + k], stage[5 * row_stride + k],
-                     px, py, e))
-      continue;
-    const float next = transmit<kFast>(trans, e.alpha);
-    if (next < kMinTransmittance) {
-      done = true;
-      break;
-    }
-    const float w = __fmul_rn(e.alpha, trans);
-#pragma unroll
-    for (int c = 0; c < 3; ++c)
-      acc[c] = accumulate<kFast>(acc[c], w, stage[(6 + c) * row_stride + k]);
-    trans = next;
-  }
-}
-
-// Exact-mode backward of one staged entry at one pixel (B2, B5). Replays the
-// entry with the forward's arithmetic; for an included entry writes its
-// pixel's 9 partials into v (0 dx, 1 dy, 2-4 d(conic a, b, c), 5 d(op),
-// 6-8 d(rgb)), advances T and the prefix S, and returns true. v is left as
-// the caller set it otherwise. With T_k the transmittance before entry k,
-// w_k = alpha_k T_k, g.v = sum_c g_out_c v_c and S_k = sum_{j<=k} w_j g.rgb_j:
-//   dalpha = g.rgb T - (g.out - S) / (1 - alpha) - g_tfin T_fin / (1 - alpha),
-//   dop = dalpha e^power and dpower = dalpha op e^power where op e^power <
-//   0.99, both 0 on the clamp; dx = -dpower (a dx + b dy), dy = -dpower
-//   (c dy + b dx), da = -dpower dx^2 / 2, db = -dpower dx dy,
-//   dc = -dpower dy^2 / 2, drgb_c = g_out_c w.
-__device__ __forceinline__ bool backward_entry_exact(
-    const float* stage, int row_stride, int k, float px, float py,
-    const float g_rgb[3], float g_dot_out, float tfin_term, float& trans,
-    float& prefix, bool& done, float v[9]) {
-  const float ca = stage[2 * row_stride + k];
-  const float cb = stage[3 * row_stride + k];
-  const float cc = stage[4 * row_stride + k];
-  const float op = stage[5 * row_stride + k];
-  Entry e;
-  if (!entry_alpha(stage[k], stage[row_stride + k], ca, cb, cc, op, px,
-                   py, e))
-    return false;
-  const float one_minus = __fsub_rn(1.0f, e.alpha);
-  const float next = transmit<false>(trans, e.alpha);
-  if (next < kMinTransmittance) {
-    done = true;
-    return false;
-  }
-  const float r = stage[6 * row_stride + k];
-  const float gc = stage[7 * row_stride + k];
-  const float b = stage[8 * row_stride + k];
-  const float w = __fmul_rn(e.alpha, trans);
-  const float g_dot_rgb = __fadd_rn(
-      __fadd_rn(__fmul_rn(g_rgb[0], r), __fmul_rn(g_rgb[1], gc)),
-      __fmul_rn(g_rgb[2], b));
-  prefix = __fadd_rn(prefix, __fmul_rn(w, g_dot_rgb));
-  const float dalpha = __fsub_rn(
-      __fsub_rn(__fmul_rn(g_dot_rgb, trans),
-                __fdiv_rn(__fsub_rn(g_dot_out, prefix), one_minus)),
-      __fdiv_rn(tfin_term, one_minus));
-  if (e.raw < kMaxAlpha) {
-    const float dx = e.dx, dy = e.dy;
-    const float dpower = __fmul_rn(__fmul_rn(dalpha, op), e.g);
-    v[0] = __fmul_rn(dpower, -__fadd_rn(__fmul_rn(ca, dx), __fmul_rn(cb, dy)));
-    v[1] = __fmul_rn(dpower, -__fadd_rn(__fmul_rn(cc, dy), __fmul_rn(cb, dx)));
-    v[2] = __fmul_rn(dpower, __fmul_rn(__fmul_rn(-0.5f, dx), dx));
-    v[3] = __fmul_rn(dpower, __fmul_rn(-dx, dy));
-    v[4] = __fmul_rn(dpower, __fmul_rn(__fmul_rn(-0.5f, dy), dy));
-    v[5] = __fmul_rn(dalpha, e.g);
-  }
-  v[6] = __fmul_rn(g_rgb[0], w);
-  v[7] = __fmul_rn(g_rgb[1], w);
-  v[8] = __fmul_rn(g_rgb[2], w);
-  trans = next;
-  return true;
-}
-
-__device__ __forceinline__ float warp_sum(float v) {
-#pragma unroll
-  for (int off = 16; off > 0; off >>= 1)
-    v = __fadd_rn(v, __shfl_xor_sync(0xffffffffu, v, off));
-  return v;
-}
-
-// --- Tile geometry and the per-warp cull (B1, B3f, B3b) ---
+// --- Tile geometry and the per-warp cull (B1, B3f, B3b, B2, B5) ---
 //
 // Warps as compact pixel blocks: warp w of a tile covers the kBlockW x
 // kBlockH block (w % nbx, w / nbx), nbx = ceil(tile_w / kBlockW), so that
@@ -246,19 +152,23 @@ __device__ __forceinline__ Rect warp_rect(bool valid, int px, int py) {
 // with (hx, hy) the half-widths of the entry's cull box (cull_box).
 constexpr int kSlot = 12;
 
+// Starts copying one float from device memory at `src` to shared memory at
+// `dst` with cp.async; it lands by the calling thread's cp.async.wait_all.
+__device__ __forceinline__ void copy_async(float* dst, const float* src) {
+  const unsigned to =
+      static_cast<unsigned>(__cvta_generic_to_shared(dst));
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4;\n" ::"r"(to),
+               "l"(src));
+}
+
 // Starts copying attribute rows 0-8 of the entry at `src` (rows `stride`
-// floats apart) into `slot` with cp.async; stage_box reads them after the
-// calling thread's cp.async.wait_all.
+// floats apart) into `slot`; stage_box reads them after the calling
+// thread's cp.async.wait_all.
 __device__ __forceinline__ void stage_async(float* slot, const float* src,
                                             long long stride) {
 #pragma unroll
-  for (int r = 0; r < 9; ++r) {
-    // rows 0-1 to floats 0-1, rows 2-8 to floats 4-10
-    const unsigned dst = static_cast<unsigned>(
-        __cvta_generic_to_shared(slot + (r < 2 ? r : r + 2)));
-    asm volatile("cp.async.ca.shared.global [%0], [%1], 4;\n" ::"r"(dst),
-                 "l"(src + r * stride));
-  }
+  for (int r = 0; r < 9; ++r)  // rows 0-1 to floats 0-1, 2-8 to 4-10
+    copy_async(slot + (r < 2 ? r : r + 2), src + r * stride);
 }
 
 __device__ __forceinline__ void stage_commit() {

@@ -50,26 +50,34 @@ _P = ctypes.c_void_p
 _I = ctypes.c_int
 # name → argtypes; every pointer and the stream are c_void_p, or ctypes
 # would pass them as 32-bit ints and cut them.
-# B1, B3f and B3b take the tile order (heaviest first) after tile_ids
+# B1, B3f, B3b and B2 take the tile order (heaviest first) after tile_ids,
+# B5 after counts
 _STREAM_FWD = [_P, ctypes.c_longlong, _P, _P, _P, _P, _P, _P, _P,
                _I, _I, _I, _I, _P]
-_STREAM_BWD = [_P, ctypes.c_longlong, _P, _P, _P, _P, _P, _P, _P, _P,
+_STREAM_BWD = [_P, ctypes.c_longlong, _P, _P, _P, _P, _P, _P, _P, _P, _P,
                _I, _I, _I, _I, _P]
+_OCCUPANCY = [_I, _I, _I, _P, _P]
 _SIGNATURES = {
     "gs_stream_fwd": _STREAM_FWD,            # B1
     "gs_stream_fwd_fast": _STREAM_FWD,       # B3f
     "gs_stream_bwd": _STREAM_BWD,            # B2
-    "gs_stream_bwd_fast": _STREAM_BWD[:5] + [_P] + _STREAM_BWD[5:],  # B3b
+    "gs_stream_bwd_fast": _STREAM_BWD,       # B3b
     "gs_padded_fwd": [_P] * 7 + [_I] * 5 + [_P],          # B4
-    "gs_padded_bwd": [_P] * 10 + [_I] * 5 + [_P],         # B5
-    # (fast, tile_w, tile_h, *ctas_per_sm, *registers): the launch's
+    "gs_padded_bwd": [_P] * 11 + [_I] * 5 + [_P],         # B5
+    # (mode, tile_w, tile_h, *ctas_per_sm, *registers): the launch's
     # resident CTAs per SM (cudaOccupancyMaxActiveBlocksPerMultiprocessor)
-    # and registers per thread
-    "gs_stream_fwd_occupancy": [_I, _I, _I, _P, _P],
-    "gs_stream_bwd_fast_occupancy": [_I, _I, _I, _P, _P],
+    # and registers per thread; mode 1 is B3f for gs_stream_fwd_occupancy,
+    # unused by the others
+    "gs_stream_fwd_occupancy": _OCCUPANCY,
+    "gs_stream_bwd_fast_occupancy": _OCCUPANCY,
+    "gs_stream_bwd_occupancy": _OCCUPANCY,
+    "gs_padded_bwd_occupancy": _OCCUPANCY,
     # (buffer, tiles): the section-clock library's counters (sections.cuh)
     "gs_stream_fwd_sections": [_P, _P],
     "gs_stream_bwd_fast_sections": [_P, _P],
+    "gs_stream_bwd_sections": [_P, _P],
+    "gs_padded_fwd_sections": [_P, _P],
+    "gs_padded_bwd_sections": [_P, _P],
 }
 
 _lib = None

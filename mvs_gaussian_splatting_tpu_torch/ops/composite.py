@@ -23,7 +23,8 @@ from __future__ import annotations
 import torch
 from torch.utils.checkpoint import checkpoint
 
-from .stream import ROWS, _pixel_grid, composite_stream_bwd_plain
+from .stream import (ROWS, _pixel_grid, check_order,
+                     composite_stream_bwd_plain, heaviest_first, tile_limit)
 
 # Kernel launches: B4 by composite_padded, B5 by its backward (the CPU path
 # counts neither).
@@ -109,9 +110,9 @@ def _check(planes, rgb, valid, counts, bg, tile_w: int, tile_h: int):
             raise ValueError("all inputs must be on one device")
         if not a.is_contiguous():
             raise ValueError("inputs must be contiguous")
-    if not 0 < tile_w * tile_h <= 1024:
-        raise ValueError(f"tile_w*tile_h = {tile_w * tile_h}: the kernel runs "
-                         "one thread per pixel, at most 1024 per tile")
+    why = tile_limit(tile_w, tile_h)
+    if why:
+        raise ValueError(why)
 
 
 def _stream_view(planes, rgb, valid, counts):
@@ -194,11 +195,13 @@ def _padded_fwd(planes, rgb, valid, counts, bg, tiles_x: int, tile_w: int,
 
 def composite_padded_bwd(planes, rgb, valid, counts, bg, tiles_x: int,
                          tile_w: int, tile_h: int, out, final_t, g_out,
-                         g_tfin):
+                         g_tfin, order=None):
     """Gradient of :func:`composite_padded`: the forward's inputs, its saved
     outputs and their cotangents → (gplanes [6, T, K], grgb [T, K, 3],
     g_bg [3]). Zero at and beyond counts and in every invalid slot; g_bg =
-    Σ g_out·final_T outside the kernel, as in the JAX package."""
+    Σ g_out·final_T outside the kernel, as in the JAX package. ``order``:
+    the tile order B5 walks, :func:`heaviest_first` of ``counts`` (taken
+    here when not given)."""
     global bwd_launches
     _check(planes, rgb, valid, counts, bg, tile_w, tile_h)
     _, t, k = planes.shape
@@ -216,23 +219,24 @@ def composite_padded_bwd(planes, rgb, valid, counts, bg, tiles_x: int,
                                           final_t, g_out, g_tfin)
     if planes.device.type != "cuda":
         raise ValueError(f"no padded kernel for device {planes.device}")
-    if p % 32:
-        raise ValueError(f"tile_w*tile_h = {p}: the backward kernel reduces "
-                         "over whole warps, so it must be a multiple of 32")
     from .. import kernels
 
-    gplanes = torch.zeros_like(planes)
-    grgb = torch.zeros_like(rgb)
+    # B5 writes every slot of every tile, zeros where nothing is summed
+    gplanes = torch.empty_like(planes)
+    grgb = torch.empty_like(rgb)
     g_bg = torch.einsum("tpc,tp->c", g_out, final_t)
     if t == 0:
         return gplanes, grgb, g_bg
+    if order is None:
+        order = heaviest_first(counts)
+    check_order(order, counts)
     with torch.cuda.device(planes.device):
         err = kernels.library().gs_padded_bwd(
             planes.data_ptr(), rgb.data_ptr(), valid.data_ptr(),
-            counts.data_ptr(), out.data_ptr(), final_t.data_ptr(),
-            g_out.data_ptr(), g_tfin.data_ptr(), gplanes.data_ptr(),
-            grgb.data_ptr(), t, k, tiles_x, tile_w, tile_h,
-            torch.cuda.current_stream(planes.device).cuda_stream)
+            counts.data_ptr(), order.data_ptr(), out.data_ptr(),
+            final_t.data_ptr(), g_out.data_ptr(), g_tfin.data_ptr(),
+            gplanes.data_ptr(), grgb.data_ptr(), t, k, tiles_x, tile_w,
+            tile_h, torch.cuda.current_stream(planes.device).cuda_stream)
     if err != 0:
         raise RuntimeError(f"gs_padded_bwd launch failed: CUDA error {err}")
     bwd_launches += 1
@@ -240,13 +244,15 @@ def composite_padded_bwd(planes, rgb, valid, counts, bg, tiles_x: int,
 
 
 class _PaddedComposite(torch.autograd.Function):
-    """B4 forward, B5 backward; gradients flow to the planes, rgb and bg."""
+    """B4 forward, B5 backward; gradients flow to the planes, rgb and bg.
+    B5's tile order is taken once, in the forward."""
 
     @staticmethod
     def forward(ctx, planes, rgb, valid, counts, bg, tiles_x, tile_w, tile_h):
         out, final_t = _padded_fwd(planes, rgb, valid, counts, bg, tiles_x,
                                    tile_w, tile_h)
         ctx.geometry = (tiles_x, tile_w, tile_h)
+        ctx.order = heaviest_first(counts) if counts.is_cuda else None
         ctx.save_for_backward(planes, rgb, valid, counts, bg, out, final_t)
         return out, final_t
 
@@ -255,7 +261,7 @@ class _PaddedComposite(torch.autograd.Function):
         planes, rgb, valid, counts, bg, out, final_t = ctx.saved_tensors
         gplanes, grgb, g_bg = composite_padded_bwd(
             planes, rgb, valid, counts, bg, *ctx.geometry, out, final_t,
-            g_out.contiguous(), g_tfin.contiguous())
+            g_out.contiguous(), g_tfin.contiguous(), order=ctx.order)
         return gplanes, grgb, None, None, g_bg, None, None, None
 
 

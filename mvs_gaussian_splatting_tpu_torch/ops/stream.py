@@ -35,6 +35,9 @@ import torch
 ROWS = 16
 CHUNK = 128   # slack columns at the tail of the stream (JAX layout)
 
+MAX_TILE_PIXELS = 1024   # the kernels run one thread per pixel
+FAST_BWD_SIDE = 64       # B3b's pixel moments stay exact in TF32 up to here
+
 # Kernel launches, per kernel: B1 and B3f by composite_stream, B2 and B3b
 # by composite_stream_bwd (the CPU path counts none).
 launches = 0
@@ -62,13 +65,43 @@ def _check(attrs, seg_start, counts, bg, tile_ids, tile_w, tile_h):
             raise ValueError("all inputs must be on one device")
         if not a.is_contiguous():
             raise ValueError("inputs must be contiguous")
-    if not 0 < tile_w * tile_h <= 1024:
-        raise ValueError(f"tile_w*tile_h = {tile_w * tile_h}: the kernel runs "
-                         "one thread per pixel, at most 1024 per tile")
+    why = tile_limit(tile_w, tile_h)
+    if why:
+        raise ValueError(why)
+
+
+def tile_limit(tile_w: int, tile_h: int, fast: bool = False):
+    """Why the composite kernels cannot take ``tile_w`` × ``tile_h`` tiles,
+    or None: they run one thread per pixel, at most MAX_TILE_PIXELS a tile
+    (refused on every device, so that the CPU path refuses what the card
+    would); with ``fast``, the fast backward (B3b) on a card, which keeps
+    its pixel moments exact in TF32 only for sides up to FAST_BWD_SIDE. Any
+    other shape runs, a multiple of 32 pixels or not."""
+    if not 0 < tile_w * tile_h <= MAX_TILE_PIXELS:
+        return (f"tile {tile_w}x{tile_h} has {tile_w * tile_h} pixels: the "
+                "composite kernels run one thread per pixel, at most "
+                f"{MAX_TILE_PIXELS} a tile")
+    if fast and max(tile_w, tile_h) > FAST_BWD_SIDE:
+        return (f"tile {tile_w}x{tile_h}: the fast-math backward keeps its "
+                "pixel moments exact in TF32 only for sides of at most "
+                f"{FAST_BWD_SIDE}")
+    return None
+
+
+def check_order(order, counts):
+    """Refuse a tile order the kernels cannot walk safely: they read it as
+    ``counts.numel()`` int64 tile indices on ``counts``' device (a
+    permutation, as :func:`heaviest_first` gives; not checked, that would
+    take a sort)."""
+    if (order.dtype != torch.int64 or order.device != counts.device
+            or order.shape != (counts.numel(),)):
+        raise ValueError(f"order: want {counts.numel()} int64 tile indices "
+                         f"on {counts.device}, got {order.dtype} "
+                         f"{tuple(order.shape)} on {order.device}")
 
 
 def heaviest_first(counts):
-    """The order in which B1, B3f and B3b walk the tiles: by count,
+    """The order in which B1, B3f, B3b, B2 and B5 walk the tiles: by count,
     descending (int64 tile indices), so that the last wave of CTAs holds
     the light tiles."""
     return torch.argsort(counts, descending=True)
@@ -166,8 +199,8 @@ def composite_stream_bwd(attrs, seg_start, counts, bg, tile_ids,
     """Gradient of :func:`composite_stream`: the forward's inputs, its saved
     outputs (out [T, P, 3], final_T [T, P]) and their cotangents →
     (gattrs [16, CAP+128], g_bg [3]). ``order``: the forward's
-    :func:`heaviest_first` of ``counts``, which B3b walks too (taken here
-    when not given); B2 walks the tiles in stream order.
+    :func:`heaviest_first` of ``counts``, which B2 and B3b walk too (taken
+    here when not given).
 
     gattrs is zero outside this call's segments, in the entries a tile never
     reaches before its early exit, and in rows 9..15. g_bg = Σ g_out·final_T
@@ -183,32 +216,28 @@ def composite_stream_bwd(attrs, seg_start, counts, bg, tile_ids,
                      tile_h, out, final_t, g_out, g_tfin)
     if attrs.device.type != "cuda":
         raise ValueError(f"no stream kernel for device {attrs.device}")
-    if p % 32:
-        raise ValueError(f"tile_w*tile_h = {p}: the backward kernel reduces "
-                         "over whole warps, so it must be a multiple of 32")
-    if fast and max(tile_w, tile_h) > 64:
-        raise ValueError(f"tile {tile_w}x{tile_h}: the fast backward keeps "
-                         "pixel moments exact in TF32 only for sides <= 64")
+    why = tile_limit(tile_w, tile_h, fast)
+    if why:
+        raise ValueError(why)
     from .. import kernels
 
+    # B2 visits only this call's segments: zeros elsewhere (subset calls,
+    # tile-parallel shards)
     gattrs = torch.zeros_like(attrs)
     g_bg = torch.einsum("tpc,tp->c", g_out, final_t)
     if t == 0:
         return gattrs, g_bg
+    if order is None:
+        order = heaviest_first(counts)
+    check_order(order, counts)
     name = "gs_stream_bwd_fast" if fast else "gs_stream_bwd"
-    lib = kernels.library()
     with torch.cuda.device(attrs.device):
-        head = (attrs.data_ptr(), attrs.shape[1], seg_start.data_ptr(),
-                counts.data_ptr(), tile_ids.data_ptr())
-        rest = (out.data_ptr(), final_t.data_ptr(), g_out.data_ptr(),
-                g_tfin.data_ptr(), gattrs.data_ptr(), t, tiles_x, tile_w,
-                tile_h, torch.cuda.current_stream(attrs.device).cuda_stream)
-        if fast:
-            if order is None:
-                order = heaviest_first(counts)
-            err = lib.gs_stream_bwd_fast(*head, order.data_ptr(), *rest)
-        else:
-            err = lib.gs_stream_bwd(*head, *rest)
+        err = getattr(kernels.library(), name)(
+            attrs.data_ptr(), attrs.shape[1], seg_start.data_ptr(),
+            counts.data_ptr(), tile_ids.data_ptr(), order.data_ptr(),
+            out.data_ptr(), final_t.data_ptr(), g_out.data_ptr(),
+            g_tfin.data_ptr(), gattrs.data_ptr(), t, tiles_x, tile_w, tile_h,
+            torch.cuda.current_stream(attrs.device).cuda_stream)
     if err != 0:
         raise RuntimeError(f"{name} launch failed: CUDA error {err}")
     if fast:

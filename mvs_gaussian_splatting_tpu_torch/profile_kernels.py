@@ -1,43 +1,74 @@
-"""Where the stream kernels' time goes, on the card: the split of B1's,
-B3f's and B3b's time by section, their event counts, the tail of the last
-wave, the instructions of the loop that holds the exp, and the issue-rate
-floor those give.
+"""Where the composite kernels' time goes, on the card: the split of B1's,
+B3f's, B3b's, B2's, B4's and B5's time by section, their event counts, the
+tail of the last wave, the instructions of the loop that holds the exp, and
+the issue-rate floor those give.
 
     python -m mvs_gaussian_splatting_tpu_torch.profile_kernels \\
-        [--csrc DIR] [--views N] [--out FILE]
+        [--csrc DIR] [--baseline DIR ...] [--kernels K,...] [--views N] \\
+        [--out FILE]
 
 Builds ``csrc/*.cu`` twice, with and without ``-DGS_SECTION_CLOCKS``
 (``csrc/sections.cuh``: per-warp ``clock64()`` cycles by section, per-warp
 event counts, each CTA's start and end ``%globaltimer``), into libraries of
 their own beside the real one, and runs each kernel on the retained
-``runs/specfinal`` model's streams: B3f and B3b on the flagship's training
-layout (32×16 tiles, 512 tiles per Gaussian, tiers (4, 12, 64) at
-(0.25, 0.1, 0.01)), B1 on the offline eval layout (16×16). ``--csrc``
-points it at another tree's kernels with the same entry points and
-counters. ``chip_smoke.py`` calls
-:func:`kernel_split` on its own streams. Needs a card; the section
-library is a measuring build only, never the one the port runs.
+``runs/specfinal`` model's streams: B3f, B3b and B2 (given B1's outputs) on
+the flagship's training layout (32×16 tiles, 512 tiles per Gaussian, tiers
+(4, 12, 64) at (0.25, 0.1, 0.01)), B4 and B5 on padded tables holding the
+same tiles' entries (K the longest segment, rounded up to 32), B1 on the
+offline eval layout (16×16). ``chip_smoke.py`` calls :func:`kernel_split`
+on its own streams. Needs a card; the section library is a measuring build
+only, never the one the port runs.
 
-Sections: the forward's ``stage`` (the batch's loads, cull boxes and
-stores), ``composite`` (the loop over the batch), ``epilogue`` (the output
-writes) and ``wait_batch`` (the barrier that opens each batch); the fast
-backward's ``stage``, ``replay`` (B3f's walk, dpower and w), ``mma`` (the
-transposes through shared memory and the TF32 products), ``cross_warp``
-(the sum over the tile's warps), ``closed_form`` (the per-entry gradients
-written) and its three barriers' waits: ``wait_batch`` (opening a batch),
-``wait_groups`` (after the products) and ``wait_sum`` (after the sum). A
-warp waiting at a barrier is idle while the other CTA on its SM may issue.
-Counts, per warp: the
-warp-steps (one entry against one warp with a live lane), those with a
-contributing (forward) or included (backward) lane, the live (entry,
-pixel) pairs, the warp-steps the cull skipped, and the contributing
-(entry, pixel) pairs (α ≥ 1/255).
+``--csrc`` points it at another tree's kernels with the same entry points;
+``--baseline`` names a further tree (repeatable), profiled in turns with
+it on the same streams in one process (the baselines, csrc, then back in
+reverse): an A/B, or an ablation, inside one call; each tree's libraries
+are named after the two directories above its ``csrc``. ``--kernels``
+profiles a subset. A tree from before the exact backwards' redesign (whose
+B2 and B5 take no tile order and carry no section counters, nor does its
+B4) is run with its own signatures (:data:`LEGACY`): its B2, B4 and B5
+get times and their SASS loop, no split. Against the parent commit, from
+the checkout's root (``build/`` is gitignored and reaches the card)::
+
+    mkdir -p build/parent
+    git archive <parent> mvs_gaussian_splatting_tpu_torch/csrc \\
+        | tar -x -C build/parent
+    python -m mvs_gaussian_splatting_tpu_torch.profile_kernels \\
+        --baseline build/parent/mvs_gaussian_splatting_tpu_torch/csrc \\
+        --out chiprun_out/ab.json
+
+Times: ``ms`` is the kernel alone (CUDA events over 5 launches into
+buffers of an earlier launch); ``wrapper_ms`` (backward kernels) adds what
+its tree's wrapper does around it: the output allocated and zero-filled
+(B5 since its redesign writes every slot itself: allocated only) and the
+``g_bg`` reduction.
+
+Sections: the forward's (B1, B3f, B4) ``stage`` (the batch's loads, cull
+boxes and stores), ``composite`` (the loop over the batch), ``epilogue``
+(the output writes) and ``wait_batch`` (the barrier that opens each
+batch); the fast backward's ``stage``, ``replay`` (B3f's walk, dpower and
+w), ``mma`` (the transposes through shared memory and the TF32 products),
+``cross_warp`` (the sum over the tile's warps), ``closed_form`` (the
+per-entry gradients written) and its three barriers' waits:
+``wait_batch`` (opening a batch), ``wait_groups`` (after the products) and
+``wait_sum`` (after the sum); the exact backward's (B2, B5) ``stage``,
+``replay`` (the cull test and each pixel's alpha and T where the cull
+passes), ``gradient`` (each pixel's gradient, the butterfly sum over the
+warp and its store, and the culled warp-steps), ``cross_warp`` (the sum
+over the tile's warps and the writes), ``wait_batch`` and ``wait_sum``.
+A warp waiting at a barrier is idle while the other CTAs on its SM may
+issue. Counts, per warp: the warp-steps (one entry against one
+warp with a live lane), those with a contributing (forward) or included
+(backward) lane, the live (entry, pixel) pairs, the warp-steps the cull
+skipped, and the contributing (entry, pixel) pairs (α ≥ 1/255).
 
 The issue-rate floor: the SASS instructions of the innermost loop that
 holds the exp's ``MUFU.EX2``, per exp (``cuobjdump -sass``), times the
 warp-steps the cull let through, over (SMs × 4 issues per clock × the SM
 clock ``nvidia-smi`` reads under load). It leaves out the culled
-warp-steps' few instructions and, for B3b, the products and sums.
+warp-steps' few instructions and, for B3b, the products and sums; for B2
+and B5 the loop holds the gradient and the warp's sum too, which a
+warp-step with no included lane skips.
 """
 
 from __future__ import annotations
@@ -57,23 +88,57 @@ import torch
 
 from . import kernels
 
+_FWD = ("stage", "composite", "epilogue", "wait_batch")
 SECTIONS = {
-    "stream_fwd": ("stage", "composite", "epilogue", "wait_batch"),
+    "stream_fwd": _FWD, "stream_fwd_fast": _FWD, "padded_fwd": _FWD,
     "stream_bwd_fast": ("stage", "replay", "mma", "cross_warp",
                         "closed_form", "wait_batch", "wait_groups",
                         "wait_sum"),
+    "stream_bwd": ("stage", "replay", "gradient", "cross_warp",
+                   "wait_batch", "wait_sum"),
 }
+SECTIONS["padded_bwd"] = SECTIONS["stream_bwd"]
 COUNTS = ("warp_steps", "warp_steps_contributing", "lane_pairs",
           "warp_steps_culled", "pairs_contributing")
 ENTRY = {"stream_fwd": "gs_stream_fwd",
          "stream_fwd_fast": "gs_stream_fwd_fast",
-         "stream_bwd_fast": "gs_stream_bwd_fast"}
+         "stream_bwd_fast": "gs_stream_bwd_fast",
+         "stream_bwd": "gs_stream_bwd",
+         "padded_fwd": "gs_padded_fwd",
+         "padded_bwd": "gs_padded_bwd"}
 SETTER = {"stream_fwd": "gs_stream_fwd_sections",
           "stream_fwd_fast": "gs_stream_fwd_sections",
-          "stream_bwd_fast": "gs_stream_bwd_fast_sections"}
+          "stream_bwd_fast": "gs_stream_bwd_fast_sections",
+          "stream_bwd": "gs_stream_bwd_sections",
+          "padded_fwd": "gs_padded_fwd_sections",
+          "padded_bwd": "gs_padded_bwd_sections"}
+# a substring of each kernel's mangled name
 MANGLED = {"stream_fwd": "stream_fwd_kernelILb0E",
            "stream_fwd_fast": "stream_fwd_kernelILb1E",
-           "stream_bwd_fast": "stream_bwd_fast_kernel"}
+           "stream_bwd_fast": "stream_bwd_fast_kernel",
+           "stream_bwd": "StreamSlots",
+           "padded_fwd": "padded_fwd_kernel",
+           "padded_bwd": "PaddedSlots"}
+# (entry point, its first argument) of each kernel's occupancy report
+OCCUPANCY = {"stream_fwd": ("gs_stream_fwd_occupancy", 0),
+             "stream_fwd_fast": ("gs_stream_fwd_occupancy", 1),
+             "stream_bwd_fast": ("gs_stream_bwd_fast_occupancy", 0),
+             "stream_bwd": ("gs_stream_bwd_occupancy", 0),
+             "padded_bwd": ("gs_padded_bwd_occupancy", 0)}
+# B2 and B5 as a tree from before the exact backwards' redesign (ab6b601)
+# builds them, for the A/B against it; such a tree lacks their occupancy
+# reports. Its kernels take no tile order (``argtypes``), have other names
+# (``mangled``) and leave the slots they do not visit to a zero-filled
+# output. Every difference of that tree is here and in :func:`legacy`.
+_P, _I = ctypes.c_void_p, ctypes.c_int
+LEGACY = {"stream_bwd": {"argtypes": [_P, ctypes.c_longlong] + [_P] * 8
+                         + [_I] * 4 + [_P],
+                         "mangled": "17stream_bwd_kernel"},
+          "padded_bwd": {"argtypes": [_P] * 10 + [_I] * 5 + [_P],
+                         "mangled": "17padded_bwd_kernel"}}
+# backward kernels that write every slot of their output themselves, so
+# their wrapper allocates it unfilled
+WRITES_EVERY_SLOT = ("padded_bwd",)
 ISSUES_PER_CLOCK = 4          # warp schedulers per SM (Hopper)
 DEFINES = ("GS_SECTION_CLOCKS",)
 
@@ -103,35 +168,73 @@ def build(csrc: Path = kernels.CSRC, name: str = "libgs_kernels"):
     return tuple(kernels.load(p) for p in paths) + tuple(paths)
 
 
-def launch(lib, kernel: str, call, bwd=None, order=None):
-    """One launch of ``kernel`` from ``lib`` on ``call`` = (attrs,
-    seg_start, counts, bg, tile_ids, tiles_x, tile_w, tile_h); ``bwd`` =
-    (out, final_t, g_out, g_tfin) for the backward; ``order`` the tile
-    order (int64; by default heaviest first, as the wrappers pass it).
-    Returns its outputs."""
+def legacy(lib, kernel: str):
+    """``kernel``'s :data:`LEGACY` record where ``lib`` is a tree from
+    before the exact backwards' redesign, else None."""
+    if kernel in LEGACY and not hasattr(lib, OCCUPANCY[kernel][0]):
+        return LEGACY[kernel]
+    return None
+
+
+def _ptrs(tensors):
+    return tuple(a.data_ptr() for a in tensors)
+
+
+def launch(lib, kernel: str, call, bwd=None, order=None, into=None):
+    """One launch of ``kernel`` from ``lib`` on ``call``: a stream (attrs,
+    seg_start, counts, bg, tile_ids, tiles_x, tile_w, tile_h), or for B4 and
+    B5 padded tables (planes, rgb, valid, counts, bg, tiles_x, tile_w,
+    tile_h); ``bwd`` = (out, final_t, g_out, g_tfin) for a backward;
+    ``order`` the tile order (int64; by default heaviest first, as the
+    wrappers pass it); ``into`` the outputs of an earlier launch on the same
+    call, written again (a backward's own outputs start zeroed). Returns its
+    outputs."""
     from .ops.stream import heaviest_first
-    attrs, seg_start, counts, bg, tile_ids, tiles_x, tile_w, tile_h = call
-    t, p = seg_start.shape[0], tile_w * tile_h
-    stream = torch.cuda.current_stream().cuda_stream
-    fn = getattr(lib, ENTRY[kernel])
-    if order is None:
-        order = heaviest_first(counts)
-    head = (attrs.data_ptr(), attrs.shape[1], seg_start.data_ptr(),
-            counts.data_ptr(), tile_ids.data_ptr(), order.data_ptr())
-    if bwd is None:
-        out = torch.empty((t, p, 3), device=attrs.device)
-        final_t = torch.empty((t, p), device=attrs.device)
-        err = fn(*head, bg.data_ptr(), out.data_ptr(), final_t.data_ptr(), t,
-                 tiles_x, tile_w, tile_h, stream)
-        res = (out, final_t)
+    if kernel.startswith("padded"):
+        planes, rgb, valid, counts, bg, tiles_x, tile_w, tile_h = call
+        t, k_cap = valid.shape
+        lead = _ptrs((planes, rgb, valid, counts))
+        dims = (t, k_cap, tiles_x, tile_w, tile_h)
+        grads = (planes, rgb)
     else:
-        gattrs = torch.zeros_like(attrs)
-        err = fn(*head, *(a.data_ptr() for a in bwd), gattrs.data_ptr(), t,
-                 tiles_x, tile_w, tile_h, stream)
-        res = (gattrs,)
+        attrs, seg_start, counts, bg, tile_ids, tiles_x, tile_w, tile_h = call
+        t = seg_start.shape[0]
+        lead = (attrs.data_ptr(), attrs.shape[1], seg_start.data_ptr(),
+                counts.data_ptr(), tile_ids.data_ptr())
+        dims = (t, tiles_x, tile_w, tile_h)
+        grads = (attrs,)
+    fn = getattr(lib, ENTRY[kernel])
+    old = legacy(lib, kernel)
+    ordered = ()
+    if old:
+        fn.argtypes = old["argtypes"]
+    elif kernel != "padded_fwd":
+        ordered = ((heaviest_first(counts) if order is None
+                    else order).data_ptr(),)
+    stream = torch.cuda.current_stream().cuda_stream
+    if bwd is None:
+        p = tile_w * tile_h
+        res = into or (torch.empty((t, p, 3), device=bg.device),
+                       torch.empty((t, p), device=bg.device))
+        err = fn(*lead, *ordered, bg.data_ptr(), *_ptrs(res), *dims, stream)
+    else:
+        res = into or tuple(torch.zeros_like(a) for a in grads)
+        err = fn(*lead, *ordered, *_ptrs(bwd), *_ptrs(res), *dims, stream)
     if err:
         raise RuntimeError(f"{ENTRY[kernel]} launch failed: CUDA error {err}")
     return res
+
+
+def wrapped(lib, kernel: str, call, bwd):
+    """A backward kernel with what its tree's wrapper does around it: the
+    outputs allocated, zero-filled unless the kernel writes every slot
+    itself (:data:`WRITES_EVERY_SLOT`), and g_bg = Σ g_out·final_T."""
+    alloc = (torch.empty_like if kernel in WRITES_EVERY_SLOT
+             and not legacy(lib, kernel) else torch.zeros_like)
+    outs = call[:2] if kernel.startswith("padded") else call[:1]
+    into = tuple(alloc(a) for a in outs)
+    torch.einsum("tpc,tp->c", bwd[2], bwd[1])
+    return launch(lib, kernel, call, bwd, into=into)
 
 
 def _ms(fn, reps):
@@ -167,10 +270,25 @@ def tail(tiles: np.ndarray) -> dict:
 
 def kernel_split(main, sections, kernel: str, call, bwd=None, reps=5):
     """``kernel`` from the ``main`` and ``sections`` libraries on one
-    stream: both times, the section split (share of the warps' cycles), the
-    counts, the tail, and whether the two builds agree to the bit."""
+    stream or set of tables: its time alone (and for a backward through its
+    wrapper's work), in stream order where it takes an order, and where
+    ``sections`` has the kernel's counters the section split (share of the
+    warps' cycles), the counts, the tail, and whether the two builds agree
+    to the bit."""
     dev = call[0].device
-    t = call[1].shape[0]
+    t = call[3].shape[0] if kernel.startswith("padded") else call[1].shape[0]
+    want = launch(main, kernel, call, bwd)
+    res = {"ms": _ms(lambda: launch(main, kernel, call, bwd, into=want),
+                     reps)}
+    if bwd is not None:
+        res["wrapper_ms"] = _ms(lambda: wrapped(main, kernel, call, bwd),
+                                reps)
+    if kernel != "padded_fwd" and not legacy(main, kernel):
+        stream_order = torch.arange(t, device=dev)
+        res["ms_stream_order"] = _ms(lambda: launch(
+            main, kernel, call, bwd, stream_order, into=want), reps)
+    if not hasattr(sections, SETTER[kernel]):
+        return res
     buf = torch.zeros(16, dtype=torch.int64, device=dev)
     tiles = torch.zeros((t, 2), dtype=torch.int64, device=dev)
     err = getattr(sections, SETTER[kernel])(buf.data_ptr(), tiles.data_ptr())
@@ -179,22 +297,17 @@ def kernel_split(main, sections, kernel: str, call, bwd=None, reps=5):
     got = launch(sections, kernel, call, bwd)
     torch.cuda.synchronize()
     cyc = buf.cpu().numpy()
-    tiles_np = tiles.cpu().numpy()
-    want = launch(main, kernel, call, bwd)
-    same = all(bool(torch.equal(a, b)) for a, b in zip(got, want))
-    names = SECTIONS["stream_bwd_fast" if "bwd" in kernel else "stream_fwd"]
+    names = SECTIONS[kernel]
     total = float(cyc[:len(names)].sum())
-    stream_order = torch.arange(t, device=dev)
-    res = {"ms": _ms(lambda: launch(main, kernel, call, bwd), reps),
-           "ms_stream_order": _ms(lambda: launch(
-               main, kernel, call, bwd, stream_order), reps),
-           "ms_sections_build": _ms(
-               lambda: launch(sections, kernel, call, bwd), reps),
-           "split": {n: float(cyc[i]) / total for i, n in enumerate(names)},
-           "warp_cycles": total,
-           "counts": {n: int(cyc[8 + i]) for i, n in enumerate(COUNTS)},
-           "tail": tail(tiles_np), "bit_equal_to_main": same}
-    del got, want
+    res.update(
+        ms_sections_build=_ms(lambda: launch(sections, kernel, call, bwd,
+                                             into=got), reps),
+        split={n: float(cyc[i]) / total for i, n in enumerate(names)},
+        warp_cycles=total,
+        counts={n: int(cyc[8 + i]) for i, n in enumerate(COUNTS)},
+        tail=tail(tiles.cpu().numpy()),
+        bit_equal_to_main=all(bool(torch.equal(a, b))
+                              for a, b in zip(got, want)))
     return res
 
 
@@ -243,7 +356,9 @@ def sass_loops(path: Path, dump: Path | None = None) -> dict:
             pending = []
     out = {}
     for key, mangled in MANGLED.items():
-        fn = next((v for k, v in funcs.items() if mangled in k), None)
+        names = (mangled, LEGACY.get(key, {}).get("mangled"))
+        fn = next((v for name in names if name for k, v in funcs.items()
+                   if name in k), None)
         if fn is None:
             continue
         insns = [(a, i) for a, i in fn["insns"] if not i.startswith("NOP")]
@@ -261,11 +376,25 @@ def sass_loops(path: Path, dump: Path | None = None) -> dict:
             exps = sum("MUFU.EX2" in i for i in body)
             if exps and (best is None or len(body) < best[0]):
                 best = (len(body), exps, sum(i.split()[0].startswith("LDS")
-                                             or " LDS" in i for i in body))
+                                             or " LDS" in i for i in body),
+                        sum("SHFL" in i for i in body))
         out[key] = ({"loop_instructions": best[0], "exps": best[1],
-                     "lds": best[2], "per_entry": best[0] / best[1]}
+                     "lds": best[2], "shfl": best[3],
+                     "per_entry": best[0] / best[1]}
                     if best else None)
     return out
+
+
+def ptxas(log: Path) -> dict:
+    """Each kernel's ``-Xptxas -v`` lines (registers, spills) in ``log``."""
+    res = {}
+    for key, mangled in MANGLED.items():
+        for name in (mangled, LEGACY.get(key, {}).get("mangled")):
+            lines = kernels.ptxas_report(name, log) if name else None
+            if lines:
+                res[key] = lines
+                break
+    return res
 
 
 def sm_clock_mhz(busy) -> dict:
@@ -287,23 +416,46 @@ def issue_floor_ms(per_entry: float, warp_steps: int, mhz: float) -> float:
     return per_entry * warp_steps / (sms * ISSUES_PER_CLOCK * mhz * 1e6) * 1e3
 
 
+def tile_warps(tile_w: int, tile_h: int) -> int:
+    """Warps of a tile's CTA in B1, B3f, B3b, B2 and B5: one per 8×4 pixel
+    block, or per 32 pixels in row order where the blocks would need more
+    than 1,024 threads (``csrc/stream_common.cuh:tile_threads``)."""
+    blocks = -(-tile_w // 8) * -(-tile_h // 4)
+    return blocks if blocks * 32 <= 1024 else -(-(tile_w * tile_h) // 32)
+
+
 def occupancy(lib, tile_w: int, tile_h: int) -> dict:
-    """Resident CTAs per SM and registers per thread of B1/B3f and B3b at
+    """Resident CTAs per SM, registers per thread and resident warps per SM
+    of each kernel with an occupancy report (B1, B3f, B3b, B2, B5) at
     ``tile_w`` × ``tile_h``, from the library's own launch configuration."""
     res = {}
-    for key, fn, args in (
-            ("stream_fwd", "gs_stream_fwd_occupancy", (0,)),
-            ("stream_fwd_fast", "gs_stream_fwd_occupancy", (1,)),
-            ("stream_bwd_fast", "gs_stream_bwd_fast_occupancy", (0,))):
+    for key, (fn, mode) in OCCUPANCY.items():
         if not hasattr(lib, fn):
             continue
         ctas, regs = ctypes.c_int(0), ctypes.c_int(0)
-        err = getattr(lib, fn)(*args, tile_w, tile_h, ctypes.byref(ctas),
+        err = getattr(lib, fn)(mode, tile_w, tile_h, ctypes.byref(ctas),
                                ctypes.byref(regs))
         if err:
             raise RuntimeError(f"{fn} failed: CUDA error {err}")
-        res[key] = {"ctas_per_sm": ctas.value, "registers": regs.value}
+        res[key] = {"ctas_per_sm": ctas.value, "registers": regs.value,
+                    "warps_per_sm": ctas.value * tile_warps(tile_w, tile_h)}
     return res
+
+
+def tables_from_stream(call):
+    """Padded tables holding a stream's segments (tile t's entries in slots
+    [0, counts[t]) of row t, K the longest segment rounded up to 32, every
+    slot below counts valid): B4 and B5 then walk the entries B1 and B2
+    walk. The stream's tile t must be the image's tile t."""
+    attrs, seg_start, counts, bg, _, tiles_x, tile_w, tile_h = call
+    k = int(counts.max())
+    k += (-k) % 32
+    slot = torch.arange(k, device=attrs.device)
+    live = slot[None, :] < counts.long()[:, None]                 # [T, K]
+    cols = torch.where(live, seg_start.long()[:, None] + slot, 0)
+    rows = torch.where(live[None], attrs[:9, cols], 0.0)           # [9, T, K]
+    return (rows[:6].contiguous(), rows[6:9].permute(1, 2, 0).contiguous(),
+            live.to(torch.float32), counts, bg, tiles_x, tile_w, tile_h)
 
 
 def _streams(n_views: int):
@@ -363,32 +515,52 @@ def _streams(n_views: int):
     return train, evals
 
 
-def backward_inputs(main, call, seed=0):
-    """(out, final_t, g_out, g_tfin) for B3b on ``call``: B3f's outputs
-    from ``main`` and cotangents made from ``seed``."""
-    out, tfin = launch(main, "stream_fwd_fast", call)
+def backward_inputs(main, call, seed=0, forward="stream_fwd_fast"):
+    """(out, final_t, g_out, g_tfin) for a backward on ``call``: the outputs
+    of ``forward`` from ``main`` (B3f for B3b, B1 for B2, B4 for B5) and
+    cotangents made from ``seed``."""
+    out, tfin = launch(main, forward, call)
     rng = np.random.RandomState(seed)
     g = (rng.randn(*out.shape), rng.randn(*tfin.shape))
     return (out, tfin) + tuple(torch.from_numpy(a.astype(np.float32)).to(
         out.device) for a in g)
 
 
-def profile(main, sections, main_path, train, evals, dump=None) -> dict:
-    """Every stream kernel's split on the given streams (means over them:
-    ``train`` at the training layout, ``evals`` at the eval layout), its
-    SASS loop in the library at ``main_path``, the SM clock under load and
-    the issue-rate floor."""
+def profile(main, sections, main_path, train, evals, dump=None,
+            only=tuple(ENTRY)) -> dict:
+    """The split of each composite kernel in ``only`` on the given streams
+    (means over them: ``train`` at the training layout, ``evals`` at the
+    eval layout), its SASS loop in the library at ``main_path``, the SM
+    clock under load and the issue-rate floor."""
     sass = sass_loops(main_path, dump)
-    train = [(c, backward_inputs(main, c, k)) for k, c in enumerate(train)]
-    runs = {"stream_fwd": [kernel_split(main, sections, "stream_fwd", c)
-                           for c in evals],
-            "stream_fwd_fast": [kernel_split(main, sections,
-                                             "stream_fwd_fast", c)
-                                for c, _ in train],
-            "stream_bwd_fast": [kernel_split(main, sections,
-                                             "stream_bwd_fast", c, b)
-                                for c, b in train]}
-    call, b = train[0]
+    runs = {key: [] for key in only}
+    for c in evals if "stream_fwd" in only else ():
+        runs["stream_fwd"].append(kernel_split(main, sections, "stream_fwd",
+                                               c))
+    for k, c in enumerate(train):
+        if "stream_fwd_fast" in only:
+            runs["stream_fwd_fast"].append(kernel_split(
+                main, sections, "stream_fwd_fast", c))
+        if "stream_bwd_fast" in only:
+            runs["stream_bwd_fast"].append(kernel_split(
+                main, sections, "stream_bwd_fast", c,
+                backward_inputs(main, c, k)))
+        if "stream_bwd" in only:
+            runs["stream_bwd"].append(kernel_split(
+                main, sections, "stream_bwd", c,
+                backward_inputs(main, c, k, "stream_fwd")))
+        if {"padded_fwd", "padded_bwd"} & set(only):
+            tables = tables_from_stream(c)
+            if "padded_fwd" in only:
+                runs["padded_fwd"].append(kernel_split(
+                    main, sections, "padded_fwd", tables))
+            if "padded_bwd" in only:
+                runs["padded_bwd"].append(kernel_split(
+                    main, sections, "padded_bwd", tables,
+                    backward_inputs(main, tables, k, "padded_fwd")))
+            del tables
+    call = train[0]
+    b = backward_inputs(main, call)
     clock = sm_clock_mhz(lambda: launch(main, "stream_bwd_fast", call, b))
     res = {"clock": clock}
     for key, rows in runs.items():
@@ -398,32 +570,39 @@ def profile(main, sections, main_path, train, evals, dump=None) -> dict:
 
 def aggregate(rows, loop, mhz) -> dict:
     """One kernel's :func:`kernel_split` results over several streams
-    (means), with its SASS loop (:func:`sass_loops`) and the issue-rate
-    floor at ``mhz``."""
+    (means), with its SASS loop (:func:`sass_loops`) and, where the rows
+    carry counts, the issue-rate floor at ``mhz``."""
+    res = {"views": len(rows), "sass_loop": loop}
+    for key in ("ms", "wrapper_ms", "ms_stream_order", "ms_sections_build"):
+        if key in rows[0]:
+            res[key] = float(np.mean([r[key] for r in rows]))
+    if "counts" not in rows[0]:
+        return res
     counts = {n: int(np.mean([r["counts"][n] for r in rows])) for n in COUNTS}
     passed = counts["warp_steps"] - counts["warp_steps_culled"]
-    return {
-        "views": len(rows),
-        "ms": float(np.mean([r["ms"] for r in rows])),
-        "ms_stream_order": float(np.mean([r["ms_stream_order"]
-                                          for r in rows])),
-        "ms_sections_build": float(np.mean([r["ms_sections_build"]
-                                            for r in rows])),
-        "split": {n: float(np.mean([r["split"][n] for r in rows]))
-                  for n in rows[0]["split"]},
-        "counts": counts,
-        "tail": {n: float(np.mean([r["tail"][n] for r in rows]))
-                 for n in rows[0]["tail"]},
-        "bit_equal_to_main": all(r["bit_equal_to_main"] for r in rows),
-        "sass_loop": loop,
-        "issue_floor_ms": (issue_floor_ms(loop["per_entry"], passed, mhz)
-                           if loop else None)}
+    res.update(
+        split={n: float(np.mean([r["split"][n] for r in rows]))
+               for n in rows[0]["split"]},
+        counts=counts,
+        tail={n: float(np.mean([r["tail"][n] for r in rows]))
+              for n in rows[0]["tail"]},
+        bit_equal_to_main=all(r["bit_equal_to_main"] for r in rows),
+        issue_floor_ms=(issue_floor_ms(loop["per_entry"], passed, mhz)
+                        if loop else None))
+    return res
 
 
 def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--csrc", type=Path, default=kernels.CSRC,
                     help="kernel sources carrying the section counters")
+    ap.add_argument("--baseline", type=Path, action="append", default=[],
+                    help="another tree's kernel sources, profiled in turns "
+                         "with --csrc on the same streams (repeatable: one "
+                         "pass over all trees, then one back)")
+    ap.add_argument("--kernels", default=",".join(ENTRY),
+                    help="comma-separated kernels to profile (default all: "
+                         + ", ".join(ENTRY) + ")")
     ap.add_argument("--views", type=int, default=5)
     ap.add_argument("--out", type=Path, default=None,
                     help="also write the JSON here (and the SASS beside it)")
@@ -433,16 +612,30 @@ def main(argv=None):
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True,
                          text=True, check=True).stdout.strip()
-    main_lib, sec_lib, main_path, _ = build(
-        args.csrc, "libgs_" + Path(args.csrc).resolve().name)
+    trees = [*args.baseline, args.csrc]
+    if args.baseline:
+        trees += trees[::-1]
+    libs = {}
+    for csrc in trees:
+        if csrc not in libs:   # named by the tree's two parent directories
+            tag = "_".join(Path(csrc).resolve().parts[-3:-1])
+            libs[csrc] = (tag,) + build(csrc, "libgs_" + tag)
+    unknown = set(args.kernels.split(",")) - set(ENTRY)
+    if unknown:
+        raise SystemExit(f"unknown kernels {sorted(unknown)}")
     train, evals = _streams(args.views)
-    dump = args.out.with_suffix(".sass.txt") if args.out else None
-    res = {"card": smi, "csrc": str(args.csrc),
-           "ptxas": {k: kernels.ptxas_report(m, main_path.with_suffix(".log"))
-                     for k, m in MANGLED.items()},
-           "occupancy_32x16": occupancy(main_lib, 32, 16),
-           **profile(main_lib, sec_lib, main_path, train, evals, dump)}
-    text = json.dumps(res)
+    runs = []
+    for csrc in trees:
+        tag, main_lib, sec_lib, main_path, _ = libs[csrc]
+        dump = (args.out.with_name(f"{args.out.stem}_{tag}.sass.txt")
+                if args.out else None)
+        runs.append({"csrc": str(csrc),
+                     "ptxas": ptxas(main_path.with_suffix(".log")),
+                     "occupancy": {f"{tw}x16": occupancy(main_lib, tw, 16)
+                                   for tw in (16, 32)},
+                     **profile(main_lib, sec_lib, main_path, train, evals,
+                               dump, tuple(args.kernels.split(",")))})
+    text = json.dumps({"card": smi, "runs": runs})
     print(text)
     if args.out:
         args.out.parent.mkdir(parents=True, exist_ok=True)

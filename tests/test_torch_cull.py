@@ -16,6 +16,8 @@ import numpy as np
 import pytest
 import torch
 
+from mvs_gaussian_splatting_tpu_torch.ops.composite import (_stream_view,
+                                                           random_tables)
 from mvs_gaussian_splatting_tpu_torch.ops.stream import cull_box, random_stream
 
 torch.set_num_threads(1)
@@ -97,6 +99,31 @@ def test_no_contributing_block_culled(geometry, far):
     culled, pairs = check(ent, ox, oy, tw, th)
     # the test means something: the box does cull
     assert culled > 0.1 * pairs
+
+
+@pytest.mark.parametrize("geometry", [(16, 16), (24, 10)])
+def test_padded_tables(geometry):
+    """B5 stages a table's slots as B2 stages a stream's entries, an invalid
+    slot with opacity 0 (``ops/composite.py:_stream_view`` lays the tables
+    out so for the plain versions): no (slot, block) pair with a
+    contributing pixel is culled, and an invalid slot has no box."""
+    tw, th = geometry
+    s = random_tables(7, tiles_x=4, tiles_y=3, tile_w=tw, tile_h=th, k=256)
+    valid = torch.from_numpy(s["valid"])
+    attrs, seg_start, counts = _stream_view(
+        *(torch.from_numpy(s[key]) for key in ("planes", "rgb")), valid,
+        torch.from_numpy(s["counts"]))
+    tile = torch.repeat_interleave(torch.arange(len(counts)), counts.long())
+    cols = torch.cat([torch.arange(int(st), int(st) + int(c))
+                      for st, c in zip(seg_start, counts)])
+    ent = attrs[:6, cols].T
+    culled, pairs = check(ent, (tile % s["tiles_x"]) * tw,
+                          (tile // s["tiles_x"]) * th, tw, th)
+    assert culled > 0.1 * pairs
+    invalid = valid.reshape(-1)[cols] == 0
+    assert bool(invalid.any())
+    hx, hy = cull_box(*ent[invalid, 2:6].T)
+    assert bool((hx == -torch.inf).all()) and bool((hy == -torch.inf).all())
 
 
 def grazing_entries(rng, n, tile_w, tile_h):

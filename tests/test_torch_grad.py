@@ -69,7 +69,10 @@ def _jax_vjp(attrs, seg_start, counts, bg, tile_ids, cts, tiles_x, tile_w,
 
 
 class TestStreamBackward:
-    @pytest.mark.parametrize("geometry", [(16, 16), (32, 16)])
+    # 24×10 and 8×4: tiles of a part-filled and of a single 8×4 warp block,
+    # which the kernel's compact warps take since B2's redesign
+    @pytest.mark.parametrize("geometry", [(16, 16), (32, 16), (24, 10),
+                                          (8, 4)])
     def test_plain_matches_jax_vjp(self, geometry):
         tw, th = geometry
         s = tstream.random_stream(7, tiles_x=3, tiles_y=2, tile_w=tw,

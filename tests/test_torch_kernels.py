@@ -310,17 +310,18 @@ class TestBackwardKernel:
         assert float(attrs.grad.abs().max()) > 0
 
     def test_bad_launch_raises(self, cuda, monkeypatch):
-        # 48 pixels per tile is not whole warps: refused before any launch
-        s = random_stream(3, tiles_x=3, tiles_y=2, tile_w=8, tile_h=6,
+        # a side over 64 in fast mode: refused before any launch (B3b's
+        # pixel moments stay exact in TF32 only up to 64)
+        s = random_stream(3, tiles_x=2, tiles_y=3, tile_w=128, tile_h=4,
                           long_len=100)
         a = _args(s, cuda)
-        out, tfin = composite_stream(*a)
+        out, tfin = composite_stream(*a, fast=True)
         g = torch.zeros_like(out), torch.zeros_like(tfin)
-        with pytest.raises(ValueError, match="multiple of 32"):
-            stream.composite_stream_bwd(*a, out, tfin, *g)
+        with pytest.raises(ValueError, match="sides of at most 64"):
+            stream.composite_stream_bwd(*a, out, tfin, *g, fast=True)
         # 2048 threads per block: the card refuses the launch, and the
         # wrapper raises on the error code instead of returning zeros
-        monkeypatch.setattr(stream, "_check", lambda *args: None)
+        monkeypatch.setattr(stream, "tile_limit", lambda *args: None)
         s = random_stream(4, tiles_x=2, tiles_y=2, tile_w=64, tile_h=32,
                           long_len=100)
         a = _args(s, cuda)
@@ -498,8 +499,9 @@ class TestFastKernels:
 def edge_stream(case, seed=11):
     """A random stream (4×3 tiles, tiles 2 and 3 longer than four batches
     of either kernel, a fifth of the entries far-centred wide splats) for
-    one edge case of the compact warp blocks and the per-warp cull; returns
-    (stream, whether B3b takes its geometry)."""
+    one edge case of the compact warp blocks and the per-warp cull (any
+    other name: the stream as made, on 32×16 tiles); returns (stream,
+    whether B3b takes its geometry: sides of at most 64)."""
     tw, th = {"odd_24x10": (24, 10), "odd_24x4": (24, 4),
               "one_warp_8x4": (8, 4), "rows_512x2": (512, 2),
               "threshold": (16, 16)}.get(case, (32, 16))
@@ -561,8 +563,7 @@ def edge_stream(case, seed=11):
                                   np.nextafter(m, np.float32(1)))
         a[0, :n][pick] = ox[pick] + rng.randint(0, tw, int(pick.sum()))
         a[1, :n][pick] = oy[pick] + rng.randint(0, th, int(pick.sum()))
-    p = tw * th
-    return s, p % 32 == 0 and max(tw, th) <= 64
+    return s, max(tw, th) <= stream.FAST_BWD_SIDE
 
 
 def finite_row_gaps(got, want, call, batch=64):
@@ -652,6 +653,95 @@ class TestCompactBlocksAndCull:
             assert bool((got[:, outside] == 0).all())
             assert bool((got[9:] == 0).all())
         print(msg)
+
+
+def exact_row_gaps(got, want, attrs):
+    """bwd_gaps over the values both have finite, after checking where
+    either side is not finite. Only the plain version may be, and only at
+    an entry whose centre or conic is not finite (its rows 0-1 multiply a
+    zero dpower by the conic); the kernel writes 0 there, as it does for
+    every entry no pixel includes."""
+    bad = ~torch.isfinite(attrs[:6]).all(0)
+    fin_w, fin_g = torch.isfinite(want), torch.isfinite(got)
+    ok = (fin_w & fin_g) | (bad & ~fin_w & (got == 0))
+    assert bool(ok.all()), (
+        f"{int((~ok).sum())} values non-finite, e.g. (row, column) "
+        f"{torch.nonzero(~ok)[:4].tolist()}")
+    both = fin_w & fin_g
+    return bwd_gaps(torch.where(both, got, 0.0), torch.where(both, want, 0.0))
+
+
+@pytest.mark.gpu
+class TestExactBackwards:
+    """B2 and B5, one kernel body (csrc/exact_bwd.cuh), on the edge cases of
+    the compact warp blocks and the cull, and on every tile shape their
+    forwards take: within 1e-5 of each row's (plane's) largest magnitude
+    of the plain version, exact zeros outside the segments, in rows 9-15
+    and in invalid or uncounted slots, and two launches equal to the bit."""
+
+    @pytest.mark.parametrize("case", ["odd_24x10", "odd_24x4",
+                                      "one_warp_8x4", "rows_512x2",
+                                      "saturate", "graze", "degenerate",
+                                      "threshold", "long_32x16"])
+    def test_b2_matches_plain(self, cuda, case):
+        s, _ = edge_stream(case)
+        a = _args(s, cuda)
+        out, tfin = composite_stream(*a)
+        g_out, g_tfin = (c.to(cuda) for c in _cotangents(s, 4))
+        before = stream.bwd_launches
+        got, _ = stream.composite_stream_bwd(*a, out, tfin, g_out, g_tfin)
+        again, _ = stream.composite_stream_bwd(*a, out, tfin, g_out, g_tfin)
+        torch.cuda.synchronize()
+        assert stream.bwd_launches == before + 2
+        want, _ = stream.composite_stream_bwd_plain(*a, out, tfin, g_out,
+                                                    g_tfin)
+        gaps = exact_row_gaps(got[:9], want[:9], a[0])
+        print(f"{case}: B2 per-row " + " ".join(f"{g:.1e}" for g in gaps))
+        assert max(gaps) <= BWD_REL
+        assert torch.equal(got, again)
+        outside = ~_segment_mask(s, cuda)
+        assert bool((got[:, outside] == 0).all())
+        assert bool((got[9:] == 0).all())
+
+    @pytest.mark.parametrize("geometry", ["24x10", "8x4", "512x2", "32x16"])
+    def test_b5_matches_plain(self, cuda, geometry):
+        tw, th = (int(v) for v in geometry.split("x"))
+        s = random_tables(6, tiles_x=4, tiles_y=3, tile_w=tw, tile_h=th,
+                          k=384)
+        a = _padded_args(s, cuda)
+        out, tfin = composite._padded_fwd(*a)
+        t, p = out.shape[:2]
+        rng = np.random.RandomState(6)
+        g_out = torch.from_numpy(rng.randn(t, p, 3).astype(np.float32)).to(cuda)
+        g_tfin = torch.from_numpy(rng.randn(t, p).astype(np.float32)).to(cuda)
+        gpl, grgb, _ = composite.composite_padded_bwd(*a, out, tfin, g_out,
+                                                      g_tfin)
+        again = composite.composite_padded_bwd(*a, out, tfin, g_out, g_tfin)
+        torch.cuda.synchronize()
+        wpl, wrgb, _ = composite.composite_padded_bwd_plain(
+            *a, out, tfin, g_out, g_tfin)
+        gaps = bwd_gaps(torch.cat([gpl, grgb.permute(2, 0, 1)]),
+                        torch.cat([wpl, wrgb.permute(2, 0, 1)]))
+        print(f"{geometry}: B5 per-plane " + " ".join(f"{g:.1e}" for g in gaps))
+        assert max(gaps) <= BWD_REL
+        assert torch.equal(gpl, again[0]) and torch.equal(grgb, again[1])
+        # invalid slots inside the counted range, and slots at and past it
+        valid = torch.from_numpy(s["valid"] > 0).to(cuda)
+        slot = torch.arange(valid.shape[1], device=cuda)
+        counted = slot[None, :] < a[3].long()[:, None]
+        assert bool((counted & ~valid).any()) and bool((~counted).any())
+        dead = ~valid | ~counted
+        assert bool((gpl[:, dead] == 0).all()) and bool((grgb[dead] == 0).all())
+
+    def test_exact_train_step_at_24x10_launches_b2(self, cuda, monkeypatch):
+        from mvs_gaussian_splatting_tpu_torch.ops.rasterize import \
+            RasterConfig
+        for name in ("composite_stream_plain", "composite_stream_bwd_plain"):
+            monkeypatch.setattr(stream, name, _refuse)
+        before = _launch_counts()
+        _one_train_step(cuda, RasterConfig(tile_w=24, tile_h=10))
+        after = _launch_counts()
+        assert [x - y for x, y in zip(after, before)] == [1, 1, 0, 0, 0, 0]
 
 
 def _padded_args(s, device):

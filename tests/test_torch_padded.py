@@ -170,6 +170,16 @@ def _jax_padded_vjp(planes, rgb, valid, counts, bg, k, cts):
     return out, pull(cts)
 
 
+@functools.partial(jax.jit, static_argnums=(6, 7, 8, 9))
+def _jax_padded_vjp_tiles(planes, rgb, valid, counts, bg, cts, tiles_x,
+                          tile_w, tile_h, k):
+    def f(pl, c, b):
+        return composite_pallas(pl, c, valid, counts, b, tiles_x, tile_w,
+                                tile_h, k, True)
+    out, pull = jax.vjp(f, tuple(planes), rgb, bg)
+    return out, pull(cts)
+
+
 class TestPaddedComposite:
     @pytest.mark.parametrize("holes", [False, True])
     def test_plain_matches_pallas_interpret(self, holes):
@@ -213,6 +223,41 @@ class TestPaddedComposite:
             jnp.arange(t), TILES_X, 16, 16, jnp.asarray(bg))
         assert float(np.abs(out.numpy().transpose(0, 2, 1)
                             - np.asarray(out_jnp)).max()) <= TOL
+
+    # 24×10 and 8×4: tiles of a part-filled and of a single 8×4 warp block,
+    # which B5 takes since its redesign
+    @pytest.mark.parametrize("geometry", [(24, 10), (8, 4)])
+    def test_plain_bwd_matches_pallas_interpret_odd_tiles(self, geometry):
+        tw, th = geometry
+        k = 128
+        s = tcomp.random_tables(5, tiles_x=3, tiles_y=2, tile_w=tw,
+                                tile_h=th, k=k)
+        t, p = s["counts"].shape[0], tw * th
+        rng = np.random.RandomState(6)
+        g_out = rng.randn(t, p, 3).astype(np.float32)
+        g_tfin = rng.randn(t, p).astype(np.float32)
+        (out_j, tfin_j), (gpl_j, grgb_j, gbg_j) = _jax_padded_vjp_tiles(
+            [jnp.asarray(a) for a in s["planes"]], jnp.asarray(s["rgb"]),
+            jnp.asarray(s["valid"]), jnp.asarray(s["counts"]),
+            jnp.asarray(s["bg"]), (jnp.asarray(g_out), jnp.asarray(g_tfin)),
+            s["tiles_x"], tw, th, k)
+        args = [torch.from_numpy(s[key]) for key in
+                ("planes", "rgb", "valid", "counts", "bg")] + [
+            s["tiles_x"], tw, th]
+        out, tfin = tcomp.composite_padded_plain(*args)
+        gap = max(float(np.abs(out.numpy() - np.asarray(out_j)).max()),
+                  float(np.abs(tfin.numpy() - np.asarray(tfin_j)).max()))
+        gpl, grgb, gbg = tcomp.composite_padded_bwd_plain(
+            *args, out, tfin, torch.from_numpy(g_out),
+            torch.from_numpy(g_tfin))
+        gaps = [rel_gap(gpl[r].numpy(), gpl_j[r]) for r in range(6)]
+        gaps += [rel_gap(grgb.numpy(), grgb_j), rel_gap(gbg.numpy(), gbg_j)]
+        print(f"{tw}x{th}: forward {gap:.2e}, gradients "
+              + " ".join(f"{g:.1e}" for g in gaps))
+        assert gap <= TOL and max(gaps) <= REL
+        dead = s["valid"] == 0
+        assert dead.any()
+        assert not gpl.numpy()[:, dead].any() and not grgb.numpy()[dead].any()
 
     def test_autograd_takes_plain_versions_on_cpu(self):
         planes, rgb, valid, counts = tables(4)
