@@ -16,8 +16,9 @@ padded-table backend. Phases, one JSON line each:
    nvcc, and at the same time the section-clock library of
    ``profile_kernels.py`` (``-DGS_SECTION_CLOCKS``, a measuring build the
    port never runs); each kernel's ``-Xptxas -v`` register / shared-memory
-   line, and B1's, B3f's, B3b's, B2's and B5's registers and resident CTAs
-   per SM at 16×16 and 32×16 tiles
+   line (the one-part instantiation's, and the multi-part one's under
+   ``<name>_parts``), and each kernel's registers and resident CTAs per SM
+   at 16×16, 32×16 and the large tiles of phase 11
    (``cudaOccupancyMaxActiveBlocksPerMultiprocessor`` through the
    library's own launch configuration): B3b needs at least 32 resident
    warps per SM at 32×16 tiles and no spills, B2 and B5 no spills;
@@ -117,9 +118,27 @@ padded-table backend. Phases, one JSON line each:
    for the contributing pairs only, plus the cull's box test on each live
    warp-step) beside each kernel's bound;
 
+11. large_tiles (run before phase 10's report), tiles of more than 1,024
+   pixels (the kernels walk them in parts) and one with a side over 64
+   (B3b's parts): every kernel against its plain version on a random
+   stream and random tables at 64×32, 48×48 and 128×8 within the
+   tolerances above, two launches of each equal to the bit, and B1 on a
+   real view's 64×32 stream; then, counted as a main path, the 15 test
+   views rendered clip-free at 16×16 and 64×32 on the stream backend
+   (finite, no overflow; PSNR against ground truth and the gap between the
+   two shapes reported, not held: the reference's image depends on the
+   tile shape, as a splat reaches past 3 sigma within a larger tile,
+   ``tests/test_torch_parts.py``), 3 of them at 64×32 on the padded
+   backend within 2e-4 max abs of the stream's, and 5 training steps at
+   64×32 from the checkpoint in fast, exact and ``--backend pallas`` mode
+   (finite losses, no non-finite gradient rows, one backward launch per
+   step); each kernel's time alone on the first test view at 16×16 and
+   64×32, clip-free;
+
 then the ``kernels`` line (B1, B2, B3f, B3b, B4 and B5, with their launches
 on the main paths: the render slice of phase 4, the two arms of phase 7
-(not its control), phase 8, phase 9 and phase 9b, each counted from zero)
+(not its control), phase 8, phase 9, phase 9b and phase 11's renders and
+training, each counted from zero)
 and last ``{"ok": true, "device": {...}}``. A failed check raises after the
 measurements and exits non-zero without printing those two lines; without a
 card it exits non-zero before printing any result. It writes nothing into
@@ -186,6 +205,11 @@ INIT_STEPS = 600
 LOSS_DROP = 0.8               # train_init: final loss EMA < 0.8 × first
 PADDED_VIEWS = 3
 PADDED_STEPS = 20
+# tiles of more than 1,024 pixels (walked in parts), one with B3b's side
+# limit: 64 x 32 (2 parts), 48 x 48 (4, two cut at the edges), 128 x 8 (one
+# part in the forwards, 4 in B3b)
+LARGE_TILES = ((64, 32), (48, 48), (128, 8))
+LARGE_STEPS = 5
 # the flagship recipe's raster flags (runs/specfinal/NOTE.md,
 # scripts/ref_scale_validation.py), in the default fast-math mode; the
 # exact arm adds --no-fast_math
@@ -1207,6 +1231,259 @@ def padded_cli(tmp, data, faults):
     return {"launches": launches}
 
 
+def large_kernel_check(tw, th, seed):
+    """All six kernels at ``tw`` × ``th`` tiles on a random stream (a fifth
+    of its entries far-centred wide splats) and random tables, against their
+    plain versions (each backward given its own forward's outputs), and two
+    launches of each compared to the bit."""
+    import torch
+
+    from mvs_gaussian_splatting_tpu_torch.ops import composite, stream
+    dev = torch.device("cuda")
+    syn = stream.random_stream(seed, tiles_x=4, tiles_y=3, tile_w=tw,
+                               tile_h=th, far=0.2)
+    a = tuple(torch.from_numpy(syn[k]).to(dev) for k in
+              ("attrs", "seg_start", "counts", "bg", "tile_ids")) + (
+        syn["tiles_x"], tw, th)
+    t, p = a[1].shape[0], tw * th
+    g_out, g_tfin = cotangents(t, p, seed + 20, dev)
+    res = {"parts": stream.tile_parts(tw, th),
+           "parts_b3b": stream.tile_parts(tw, th, stream.FAST_BWD_SIDE)}
+    out, tfin = stream.composite_stream(*a)
+    again = stream.composite_stream(*a)
+    ref, rtfin = stream.composite_stream_plain(*a)
+    res["b1"] = {"max_abs": max(float((out - ref).abs().max()),
+                                float((tfin - rtfin).abs().max())),
+                 "deterministic": bool(torch.equal(out, again[0])
+                                       and torch.equal(tfin, again[1]))}
+    res["b2"] = bwd_check(a, out, tfin, g_out, g_tfin)
+    fout, ftfin = stream.composite_stream(*a, fast=True)
+    fagain = stream.composite_stream(*a, fast=True)
+    gf = stream.composite_stream_bwd(*a, fout, ftfin, g_out, g_tfin,
+                                     fast=True)[0]
+    gf2 = stream.composite_stream_bwd(*a, fout, ftfin, g_out, g_tfin,
+                                      fast=True)[0]
+    chk = fast_check(a, g_out, g_tfin)
+    res["b3f"] = {"max_abs": chk["fwd_max_abs"],
+                  "deterministic": bool(torch.equal(fout, fagain[0])
+                                        and torch.equal(ftfin, fagain[1]))}
+    res["b3b"] = {"rel_gap": chk["bwd_rel_gap"],
+                  "zeros_outside": chk["zeros_outside"],
+                  "deterministic": bool(torch.equal(gf, gf2))}
+    tab = composite.random_tables(seed, tiles_x=4, tiles_y=3, tile_w=tw,
+                                  tile_h=th, k=384)
+    args = [torch.from_numpy(tab[k]).to(dev) for k in
+            ("planes", "rgb", "valid", "counts", "bg")] + [4, tw, th]
+    pchk = padded_check(args, seed + 21)
+    b4 = composite._padded_fwd(*args)
+    b4_again = composite._padded_fwd(*args)
+    torch.cuda.synchronize()
+    res["b4"] = {"max_abs": pchk["fwd_max_abs"],
+                 "deterministic": bool(torch.equal(b4[0], b4_again[0])
+                                       and torch.equal(b4[1], b4_again[1]))}
+    res["b5"] = {"rel_gap": pchk["bwd_rel_gap"],
+                 "zeros_dead": pchk["zeros_dead"],
+                 "deterministic": pchk["deterministic"]}
+    faults = []
+    if res["b1"]["max_abs"] > TOL or res["b4"]["max_abs"] > TOL:
+        faults.append("B1/B4 vs plain")
+    if res["b3f"]["max_abs"] > FAST_TOL:
+        faults.append("B3f vs plain")
+    if (max(res["b2"]["rel_gap"]) > BWD_REL or not res["b2"]["zeros_outside"]
+            or max(res["b5"]["rel_gap"]) > BWD_REL
+            or not res["b5"]["zeros_dead"]):
+        faults.append("B2/B5 vs plain")
+    if (max(res["b3b"]["rel_gap"]) > FAST_REL
+            or not res["b3b"]["zeros_outside"]):
+        faults.append("B3b vs plain")
+    if not all(res[k]["deterministic"] for k in
+               ("b1", "b2", "b3f", "b3b", "b4", "b5")):
+        faults.append("two launches differ")
+    return res, faults
+
+
+def clip_free_layout(params, cams, cfg_base, tw, th):
+    """The offline eval layout at ``tw`` × ``th`` tiles with the 16M slot
+    limit lifted (clip-free), as phase 4b makes it at 16×16."""
+    from mvs_gaussian_splatting_tpu_torch.cli.render import (
+        adaptive_eval_config, measure_tile_needs)
+    base = cfg_base._replace(tile_w=tw, tile_h=th)
+    return adaptive_eval_config(base, measure_tile_needs(params, cams, tw, th),
+                                log=lambda *_: None, slot_limit=1 << 28)
+
+
+def large_tiles(params, cams, test_cams, cfg_base, data, tmp, seed, faults,
+                lib):
+    """Phase 11: tiles of more than 1,024 pixels. Every kernel against its
+    plain version at LARGE_TILES, and B1 on a real view's 64×32 stream;
+    then, counted as a main path: the test views rendered clip-free at
+    64×32 on the stream backend (finite, no overflow; PSNR against ground
+    truth and the gap to the 16×16 render reported: the reference's image
+    depends on the tile shape, as splats reach past 3 sigma in a larger
+    tile) and 3 of them on the padded backend, within 2e-4 max abs of the
+    stream's, and LARGE_STEPS training steps at 64×32 in fast, exact and
+    ``--backend pallas`` mode; then each kernel's time on the first test
+    view at 16×16 and 64×32, clip-free."""
+    import torch
+
+    from mvs_gaussian_splatting_tpu_torch import profile_kernels
+    from mvs_gaussian_splatting_tpu_torch.cli.render import (
+        measure_tile_needs, quantize_image)
+    from mvs_gaussian_splatting_tpu_torch.cli.train import main as train_main
+    from mvs_gaussian_splatting_tpu_torch.models.gaussians import (
+        activated, get_features)
+    from mvs_gaussian_splatting_tpu_torch.ops import stream
+    from mvs_gaussian_splatting_tpu_torch.ops.preprocess import preprocess
+    from mvs_gaussian_splatting_tpu_torch.ops.rasterize import \
+        bin_and_pack_stream
+    from mvs_gaussian_splatting_tpu_torch.ops.render import render
+    dev = torch.device("cuda")
+    t0 = time.time()
+    checks = {}
+    for tw, th in LARGE_TILES:
+        res, bad = large_kernel_check(tw, th, seed)
+        checks[f"{tw}x{th}"] = res
+        faults += [f"large tiles {tw}x{th}: {b}: {res}" for b in bad]
+    bg = torch.zeros(3, device=dev)
+    free16 = clip_free_layout(params, cams, cfg_base, 16, 16)
+    free64 = clip_free_layout(params, cams, cfg_base, 64, 32)
+    # the padded views: those whose widest splat spans the fewest 64 x 32
+    # tiles (bin_gaussians enumerates N x that span keys), K their fullest
+    # tile
+    need = [int(measure_tile_needs(params, [c], 64, 32).max())
+            for c in test_cams]
+    pick = [int(i) for i in np.argsort(need, kind="stable")[:PADDED_VIEWS]]
+    k_need = 0
+    with torch.no_grad():
+        s, r, o = activated(params)
+        for i in pick:
+            cam = test_cams[i]
+            tx, ty = -(-cam.width // 64), -(-cam.height // 32)
+            pre = preprocess(params.xyz, o, cam.view(dev), cam.width,
+                             cam.height, scales=s, rotations=r,
+                             shs=get_features(params), sh_degree=3,
+                             tile_w=64, tile_h=32)
+            bins, attrs = bin_and_pack_stream(pre, tx, ty, free64)
+            k_need = max(k_need, int(bins.counts_raw.max()))
+            if i == pick[0]:      # B1 against its plain version, real view
+                call = (attrs, bins.seg_start, bins.counts, bg,
+                        torch.arange(tx * ty, dtype=torch.int32,
+                                     device=dev), tx, 64, 32)
+                got = stream.composite_stream(*call)
+                want = stream.composite_stream_plain(*call)
+                checks["real_view_64x32_b1_max_abs"] = max(
+                    float((a - b).abs().max()) for a, b in zip(got, want))
+                del call, got, want
+            del pre, bins, attrs
+    if checks["real_view_64x32_b1_max_abs"] > TOL:
+        faults.append(f"large tiles, B1 on a real view: "
+                      f"{checks['real_view_64x32_b1_max_abs']}")
+    pad64 = free64._replace(backend="pallas",
+                            max_tiles_per_gaussian=max(need[i] for i in pick),
+                            tile_capacity=k_need + (-k_need) % 32)
+    reset_launches()
+    rows = []
+    with torch.no_grad():
+        for k, cam in enumerate(test_cams):
+            gt = load_png(os.path.join(VIEWS, "gt", f"{k:05d}.png"))
+            imgs, row = {}, {"view": cam.image_name}
+            cfgs = {"stream_16x16": free16, "stream_64x32": free64}
+            if k in pick:
+                cfgs["padded_64x32"] = pad64
+            for name, cfg in cfgs.items():
+                out = render(cam.view(dev), cam.width, cam.height, params, bg,
+                             sh_degree=3, raster_config=cfg)
+                imgs[name] = out["render"]
+                row[name] = {
+                    "psnr_gt": psnr(quantize_image(out["render"]), gt)[0],
+                    "overflow": int(out["overflow_tiles"])
+                    + int(out["overflow_capacity"]),
+                    "finite": bool(torch.isfinite(out["render"]).all())}
+            row["max_abs_64x32_vs_16x16"] = float(
+                (imgs["stream_64x32"] - imgs["stream_16x16"]).abs().max())
+            if k in pick:
+                row["max_abs_padded_vs_stream_64x32"] = float(
+                    (imgs["padded_64x32"] - imgs["stream_64x32"]).abs().max())
+            rows.append(row)
+            del imgs, out
+    render_launches = read_launches()
+    runs = {}
+    for name, flags in (("fast", []), ("exact", ["--no-fast_math"]),
+                        ("pallas", ["--backend", "pallas"])):
+        reset_launches()
+        _, _, _, hist = train_main(
+            ["-s", data["dataset"], "-m", os.path.join(tmp, f"large_{name}"),
+             "--start_checkpoint", data["checkpoint"],
+             "--iterations", str(RESUME_ITER + LARGE_STEPS),
+             "--log_every", "1", "--seed", str(seed), *TRAIN_FLAGS,
+             "--tile_w", "64", "--tile_h", "32", *flags])
+        torch.cuda.synchronize()
+        runs[name] = {"losses": [v for _, v in hist["loss"]],
+                      "nonfinite_grad_rows": sum(
+                          v for _, v in hist["nonfinite_grad_rows"]),
+                      "launches": read_launches()}
+    launches = {key: render_launches[key]
+                + sum(r["launches"][key] for r in runs.values())
+                for key in render_launches}
+    # each kernel alone on the first test view, clip-free, at both shapes
+    times = {}
+    with torch.no_grad():
+        cam = test_cams[0]
+        for tw, th, cfg in ((16, 16, free16), (64, 32, free64)):
+            tx, ty = -(-cam.width // tw), -(-cam.height // th)
+            pre = preprocess(params.xyz, o, cam.view(dev), cam.width,
+                             cam.height, scales=s, rotations=r,
+                             shs=get_features(params), sh_degree=3,
+                             tile_w=tw, tile_h=th)
+            bins, attrs = bin_and_pack_stream(pre, tx, ty, cfg)
+            call = (attrs, bins.seg_start, bins.counts, bg,
+                    torch.arange(tx * ty, dtype=torch.int32, device=dev),
+                    tx, tw, th)
+            tables = profile_kernels.tables_from_stream(call)
+            b = {"stream_bwd": profile_kernels.backward_inputs(
+                     lib, call, seed, "stream_fwd"),
+                 "stream_bwd_fast": profile_kernels.backward_inputs(
+                     lib, call, seed),
+                 "padded_bwd": profile_kernels.backward_inputs(
+                     lib, tables, seed, "padded_fwd")}
+            times[f"{tw}x{th}"] = {
+                "entries": int(bins.counts.sum()),
+                "table_slots": int(tables[2].numel()),
+                **{key: profile_kernels.kernel_split(
+                       lib, None, key,
+                       tables if key.startswith("padded") else call,
+                       b.get(key))["ms"] for key in KERNELS}}
+            del pre, bins, attrs, call, tables, b
+    emit({"phase": "large_tiles", "kernels_vs_plain": checks,
+          "tolerances": {"tol": TOL, "bwd_rel": BWD_REL,
+                         "fast_tol": FAST_TOL, "fast_rel": FAST_REL},
+          "renders": rows, "padded_views": pick,
+          "padded_64x32": {"max_tiles_per_gaussian":
+                           pad64.max_tiles_per_gaussian,
+                           "tile_capacity": pad64.tile_capacity},
+          "train": runs, "launches": launches, "kernel_ms_alone": times,
+          "seconds": round(time.time() - t0, 1)})
+    for row in rows:
+        if (any(v["overflow"] or not v["finite"]
+                for k, v in row.items() if k.startswith(("stream", "padded")))
+                or row.get("max_abs_padded_vs_stream_64x32", 0.0) > TOL):
+            faults.append(f"large tiles, render of {row['view']}: {row}")
+    want = {"fast": ("stream_fwd_fast", "stream_bwd_fast"),
+            "exact": ("stream_fwd", "stream_bwd"),
+            "pallas": ("padded_fwd", "padded_bwd")}
+    for name, run in runs.items():
+        if (len(run["losses"]) != LARGE_STEPS
+                or not all(np.isfinite(run["losses"]))
+                or run["nonfinite_grad_rows"]
+                or run["launches"][want[name][0]] < LARGE_STEPS
+                or run["launches"][want[name][1]] != LARGE_STEPS):
+            faults.append(f"large tiles, {name} training at 64x32: {run}")
+    if render_launches["padded_fwd"] != len(pick) or render_launches[
+            "stream_fwd"] != 2 * len(test_cams):
+        faults.append(f"large tiles, render launches {render_launches}")
+    return {"launches": launches}
+
+
 def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--seed", type=int, default=0,
@@ -1255,8 +1532,8 @@ def main(argv=None):
     lib = kernels.library()
     libs = (lib, kernels.load(sec_path))
     ptxas = profile_kernels.ptxas(kernels.BUILD_LOG)
-    occupancy = {f"{tw}x16": profile_kernels.occupancy(lib, tw, 16)
-                 for tw in (16, 32)}
+    occupancy = {f"{tw}x{th}": profile_kernels.occupancy(lib, tw, th)
+                 for tw, th in ((16, 16), (32, 16), *LARGE_TILES)}
     emit({"phase": "build", "seconds": round(time.time() - t0, 2),
           "library": os.path.relpath(kernels.LIBRARY, ROOT),
           "ptxas": ptxas, "occupancy": occupancy})
@@ -1518,6 +1795,8 @@ def main(argv=None):
         padded = padded_phase(params, test_cams, free, data, tmp, args.seed,
                               faults, libs)
         cli = padded_cli(tmp, data, faults)
+        large = large_tiles(params, cams, test_cams, cfg_base, data, tmp,
+                            args.seed, faults, lib)
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
     # 10. sections: the split, the SASS loop and the issue-rate floor
@@ -1559,12 +1838,10 @@ def main(argv=None):
         agg = profile_kernels.aggregate(rows, sass.get(name), mhz)
         c = agg["counts"]
         # the bound on the work this run's data needs: contributing pairs
-        # and the box test of each live warp-step (B4 has no cull), not
-        # every visited pair
-        box = 0 if name == "padded_fwd" else BOX_TEST_OPS
+        # and the box test of each live warp-step, not every visited pair
         work = bound(nbytes[name],
                      pair_ops[name][0] * c["pairs_contributing"]
-                     + box * c["warp_steps"],
+                     + BOX_TEST_OPS * c["warp_steps"],
                      pair_ops[name][1] * c["pairs_contributing"])
         sections[name] = dict(agg, bound_ms=bounds[name],
                               work_bound_ms=work[0], work_bound_by=work[1],
@@ -1577,7 +1854,7 @@ def main(argv=None):
              "train_resume_fast": resume["launches"]["fast"],
              "train_resume_exact": resume["launches"]["exact"],
              "train_init": init["launches"], "padded": padded["launches"],
-             "padded_cli": cli["launches"]}
+             "padded_cli": cli["launches"], "large_tiles": large["launches"]}
     totals = {k: sum(p[k] for p in paths.values()) for k in KERNELS}
     emit({"phase": "main_path_launches", "paths": paths, "totals": totals,
           "seconds_total": round(time.time() - t_start, 1)})

@@ -157,10 +157,8 @@ def main(argv=None):
     parser.add_argument("--device", default="cuda",
                         help="torch device to render on (default cuda)")
     args = parser.parse_args(argv)
-    # the composite kernels' limits, before any data is read (rendering is
-    # exact; "jnp" runs no kernel)
-    why = (None if args.backend == "jnp"
-           else tile_limit(args.tile_w, args.tile_h))
+    # an empty tile, refused before any data is read
+    why = tile_limit(args.tile_w, args.tile_h)
     if why:
         parser.error(f"--tile_w {args.tile_w} --tile_h {args.tile_h}: {why}")
     device = torch.device(args.device)

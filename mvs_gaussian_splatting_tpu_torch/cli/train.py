@@ -38,12 +38,8 @@ def main(argv=None):
     parser.add_argument("--device", default="cuda",
                         help="torch device to train on (default cuda)")
     args = parser.parse_args(argv)
-    # the composite kernels' limits, before any data is read: fast math
-    # reaches the stream backend only; "jnp" runs no kernel
-    fast_kernel = (args.fast_math and args.backend in ("auto", "stream")
-                   and torch.device(args.device).type == "cuda")
-    why = (None if args.backend == "jnp"
-           else tile_limit(args.tile_w, args.tile_h, fast_kernel))
+    # an empty tile, refused before any data is read
+    why = tile_limit(args.tile_w, args.tile_h)
     if why:
         parser.error(f"--tile_w {args.tile_w} --tile_h {args.tile_h}: {why}")
     if args.ip:

@@ -21,52 +21,24 @@
 //
 // The gradient, what bounds the kernel on an H100 and its design are
 // exact_bwd.cuh's, the body B2 (stream_bwd.cu) shares; this file says where
-// a slot is read and where its sums go. An invalid slot is staged with
-// opacity 0, as B4 stages it: its cull box is empty (cull_box), so no warp
-// replays it.
+// a slot's sums go. A slot is read as B4 reads it (slots.cuh): an invalid
+// slot is staged with opacity 0, so its cull box is empty (cull_box) and no
+// warp replays it.
 
 #include "exact_bwd.cuh"
 
 namespace {
 
-// Entry k of tile t is the slot t K + k of the [T, K] tables.
-struct PaddedSlots {
-  const float* planes;
-  const float* rgb;
-  const float* valid;
-  const int* counts;
+// Entry k of tile t is the slot t K + k of the [T, K] tables
+// (gs::PaddedSlots), its gradients the same slot of gplanes and grgb.
+struct PaddedGradSlots : gs::PaddedSlots {
   float* gplanes;
   float* grgb;
-  long long plane;  // T K: the stride of a plane
-  int k_cap;
 
-  __device__ long long base(int t) const {
-    return static_cast<long long>(t) * k_cap;
-  }
-  __device__ int count(int t) const { return max(0, min(counts[t], k_cap)); }
-  __device__ int tile(int t) const { return t; }
-  // the slot's attributes into the entry-major stage slot (stream_common.cuh:
-  // kSlot), and its valid flag into the slot's unused last float
-  __device__ void stage(float* slot, long long e) const {
-    gs::copy_async(slot, planes + e);
-    gs::copy_async(slot + 1, planes + plane + e);
-#pragma unroll
-    for (int r = 2; r < 6; ++r)
-      gs::copy_async(slot + r + 2, planes + r * plane + e);
-#pragma unroll
-    for (int c = 0; c < 3; ++c)
-      gs::copy_async(slot + 8 + c, rgb + 3 * e + c);
-    gs::copy_async(slot + 11, valid + e);
-  }
-  // an invalid slot composites nothing: opacity 0, as B4 stages it
-  __device__ void fix(float* slot) const {
-    if (!(slot[11] > 0.0f)) slot[7] = 0.0f;
-  }
-  __device__ void store(long long e, int row, float v) const {
-    if (row < 6)
-      gplanes[row * plane + e] = v;
-    else
-      grgb[3 * e + row - 6] = v;
+  // the sum of a first part, or one added to the earlier parts' (`add`)
+  __device__ void store(long long e, int row, float v, bool add) const {
+    float* dst = row < 6 ? gplanes + row * plane + e : grgb + 3 * e + row - 6;
+    *dst = add ? __fadd_rn(*dst, v) : v;
   }
   // zeros in the tile's slots [from, K): past its early exit and at and
   // past counts
@@ -86,8 +58,8 @@ struct PaddedSlots {
 
 // Launch one CTA per tile on `stream` and return cudaGetLastError().
 // The caller has checked shapes, types and devices, and passes n_tiles > 0,
-// 0 < tile_w * tile_h <= 1024 and `order`, a permutation of [0, n_tiles)
-// (int64): CTA b takes the tile order[b].
+// tile_w, tile_h > 0 (any shape) and `order`, a permutation of
+// [0, n_tiles) (int64): CTA b takes the tile order[b].
 extern "C" int gs_padded_bwd(const float* planes, const float* rgb,
                              const float* valid, const int* counts,
                              const long long* order, const float* out,
@@ -95,8 +67,11 @@ extern "C" int gs_padded_bwd(const float* planes, const float* rgb,
                              const float* g_tfin, float* gplanes, float* grgb,
                              int n_tiles, int k_cap, int tiles_x, int tile_w,
                              int tile_h, void* stream) {
-  const PaddedSlots slots{planes, rgb, valid, counts, gplanes, grgb,
-                          static_cast<long long>(n_tiles) * k_cap, k_cap};
+  const PaddedGradSlots slots{
+      {planes, rgb, valid, counts, static_cast<long long>(n_tiles) * k_cap,
+       k_cap},
+      gplanes,
+      grgb};
   return launch(slots, order, out, final_t, g_out, g_tfin, n_tiles, tiles_x,
                 tile_w, tile_h, stream);
 }
@@ -105,7 +80,7 @@ extern "C" int gs_padded_bwd(const float* planes, const float* rgb,
 // first argument is unused).
 extern "C" int gs_padded_bwd_occupancy(int, int tile_w, int tile_h,
                                        int* ctas_per_sm, int* registers) {
-  return occupancy<PaddedSlots>(tile_w, tile_h, ctas_per_sm, registers);
+  return occupancy<PaddedGradSlots>(tile_w, tile_h, ctas_per_sm, registers);
 }
 
 GS_SECTIONS_SETTER(gs_padded_bwd_sections)

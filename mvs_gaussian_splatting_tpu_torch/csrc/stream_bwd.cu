@@ -22,35 +22,21 @@
 //
 // The gradient, what bounds the kernel on an H100 and its design are
 // exact_bwd.cuh's, the body B5 (padded_bwd.cu) shares; this file says where
-// an entry is read and where its sums go.
+// an entry's sums go (an entry is read as B1 reads it, slots.cuh).
 
 #include "exact_bwd.cuh"
 
 namespace {
 
-// Entry k of tile t is the stream column seg_start[t] + k, its gradients
-// the same column of gattrs.
-struct StreamSlots {
-  const float* attrs;
-  long long stride;
-  const int* seg_start;
-  const int* counts;
-  const int* tile_ids;
+// Entry k of tile t is the stream column seg_start[t] + k (gs::StreamSlots),
+// its gradients the same column of gattrs.
+struct StreamGradSlots : gs::StreamSlots {
   float* gattrs;
 
-  __device__ long long base(int t) const { return seg_start[t]; }
-  // never read past the stream, whatever the caller passed
-  __device__ int count(int t) const {
-    return static_cast<int>(max(
-        0LL, min(static_cast<long long>(counts[t]), stride - seg_start[t])));
-  }
-  __device__ int tile(int t) const { return tile_ids[t]; }
-  __device__ void stage(float* slot, long long e) const {
-    gs::stage_async(slot, attrs + e, stride);
-  }
-  __device__ void fix(float*) const {}
-  __device__ void store(long long e, int row, float v) const {
-    gattrs[row * stride + e] = v;
+  // the sum of a first part, or one added to the earlier parts' (`add`)
+  __device__ void store(long long e, int row, float v, bool add) const {
+    float* dst = gattrs + row * stride + e;
+    *dst = add ? __fadd_rn(*dst, v) : v;
   }
   // the columns past a tile's early exit stay as the caller zeroed them
   __device__ void clear(int, long long, int, int, int) const {}
@@ -60,8 +46,9 @@ struct StreamSlots {
 
 // Launch one CTA per tile on `stream` and return cudaGetLastError().
 // The caller has checked shapes, types and devices, zeroed gattrs, and
-// passes n_tiles > 0, 0 < tile_w * tile_h <= 1024 and `order`, a
-// permutation of [0, n_tiles) (int64): CTA b takes the tile order[b].
+// passes n_tiles > 0, tile_w, tile_h > 0 (any shape: a tile of more than
+// 1,024 pixels is walked in parts) and `order`, a permutation of
+// [0, n_tiles) (int64): CTA b takes the tile order[b].
 extern "C" int gs_stream_bwd(const float* attrs, long long stride,
                              const int* seg_start, const int* counts,
                              const int* tile_ids, const long long* order,
@@ -69,7 +56,8 @@ extern "C" int gs_stream_bwd(const float* attrs, long long stride,
                              const float* g_out, const float* g_tfin,
                              float* gattrs, int n_tiles, int tiles_x,
                              int tile_w, int tile_h, void* stream) {
-  const StreamSlots slots{attrs, stride, seg_start, counts, tile_ids, gattrs};
+  const StreamGradSlots slots{{attrs, stride, seg_start, counts, tile_ids},
+                              gattrs};
   return launch(slots, order, out, final_t, g_out, g_tfin, n_tiles, tiles_x,
                 tile_w, tile_h, stream);
 }
@@ -78,7 +66,7 @@ extern "C" int gs_stream_bwd(const float* attrs, long long stride,
 // first argument is unused).
 extern "C" int gs_stream_bwd_occupancy(int, int tile_w, int tile_h,
                                        int* ctas_per_sm, int* registers) {
-  return occupancy<StreamSlots>(tile_w, tile_h, ctas_per_sm, registers);
+  return occupancy<StreamGradSlots>(tile_w, tile_h, ctas_per_sm, registers);
 }
 
 GS_SECTIONS_SETTER(gs_stream_bwd_sections)

@@ -1,8 +1,8 @@
-// Per-entry arithmetic shared by the composite kernels: stream_fwd.cu (B1
-// and its fast-math instantiation), stream_bwd_fast.cu (B3b), padded_fwd.cu
-// (B4) and exact_bwd.cuh (B2 in stream_bwd.cu, B5 in padded_bwd.cu); and the
-// tile geometry, entry-major staging and per-warp cull of B1, B3f, B3b, B2
-// and B5 (the end of the file).
+// Per-entry arithmetic shared by the composite kernels: fwd_body.cuh (B1
+// and B3f in stream_fwd.cu, B4 in padded_fwd.cu), stream_bwd_fast.cu (B3b)
+// and exact_bwd.cuh (B2 in stream_bwd.cu, B5 in padded_bwd.cu); and the
+// tile geometry, pixel parts, entry-major staging and per-warp cull that
+// all six share (the end of the file).
 //
 // A backward kernel replays its forward and takes the forward's include and
 // terminate decisions from this replay. If one decision or one w differed
@@ -86,7 +86,7 @@ __device__ __forceinline__ float accumulate(float acc, float w, float c) {
   return kFast ? __fmaf_rn(w, c, acc) : __fadd_rn(acc, __fmul_rn(w, c));
 }
 
-// --- Tile geometry and the per-warp cull (B1, B3f, B3b, B2, B5) ---
+// --- Tile geometry and the per-warp cull ---
 //
 // Warps as compact pixel blocks: warp w of a tile covers the kBlockW x
 // kBlockH block (w % nbx, w / nbx), nbx = ceil(tile_w / kBlockW), so that
@@ -96,8 +96,55 @@ __device__ __forceinline__ float accumulate(float acc, float w, float c) {
 // tile only 1-3 pixels tall or narrow, say 512 x 2), warp w takes the
 // pixels 32 w .. 32 w + 31 in row-major order instead. Output indexing is by
 // pixel p = y tile_w + x either way.
+//
+// A CTA runs one thread per pixel, at most kCtaPixels. A tile that one CTA
+// cannot cover (more pixels, or for B3b a side over 64) is walked by its CTA
+// as a grid of parts, one after another (tile_parts): each part is laid out
+// in warps as a tile of its own shape would be, walks the tile's whole
+// segment (re-staged) and writes its pixels at their places in the tile; a
+// backward's first part writes each entry's sums and later parts add
+// theirs, in part order, so two launches give the same bits and no
+// instance slot is written by two CTAs. A tile within the limits is one
+// part and runs the kernels' one-part instantiation (kParts = false), the
+// code of a kernel without parts.
 constexpr int kBlockW = 8;
 constexpr int kBlockH = 4;
+constexpr int kCtaPixels = 1024;
+constexpr int kPartSide = 32;
+
+// A tile's part grid: the nominal part shape (w x h), parts across (nx)
+// and in all (n).
+struct Parts {
+  int w, h, nx, n;
+};
+
+// The part grid of a tile_w x tile_h tile for a kernel whose one part may
+// have sides of at most max_side: the tile itself where it has at most
+// kCtaPixels pixels and such sides, else parts of min(side, kPartSide)
+// pixels a side (smaller at the right and bottom edges).
+__host__ __device__ __forceinline__ Parts tile_parts(int tile_w, int tile_h,
+                                                     int max_side) {
+  if (tile_w * tile_h <= kCtaPixels && tile_w <= max_side &&
+      tile_h <= max_side)
+    return {tile_w, tile_h, 1, 1};
+  const int w = tile_w < kPartSide ? tile_w : kPartSide;
+  const int h = tile_h < kPartSide ? tile_h : kPartSide;
+  const int nx = (tile_w + w - 1) / w;
+  return {w, h, nx, nx * ((tile_h + h - 1) / h)};
+}
+
+// One part: its origin (x0, y0) in the tile and its shape (w x h).
+struct Part {
+  int x0, y0, w, h;
+};
+
+// Part i of the grid g of a tile_w x tile_h tile.
+__device__ __forceinline__ Part part_at(const Parts& g, int i, int tile_w,
+                                        int tile_h) {
+  const int x0 = (i % g.nx) * g.w;
+  const int y0 = (i / g.nx) * g.h;
+  return {x0, y0, min(g.w, tile_w - x0), min(g.h, tile_h - y0)};
+}
 
 __host__ __device__ __forceinline__ bool compact_blocks(int tile_w,
                                                         int tile_h) {
@@ -129,22 +176,26 @@ __device__ __forceinline__ bool thread_pixel(int tid, int tile_w, int tile_h,
 }
 
 // The pixel centres a warp covers, as a rectangle: centre (cx, cy) and
-// half extents (ex, ey), all exact (halves of integers). Every warp holds
-// a pixel (its lane 0), so the rectangle is never empty.
+// half extents (ex, ey), all exact (halves of integers). A warp of a whole
+// tile holds a pixel (its lane 0); a warp past the blocks of an edge part
+// holds none, and its rectangle (taken in floats, so that no int sum
+// overflows) is never consulted: its lanes are done from the start.
 struct Rect {
   float cx, cy, ex, ey;
 };
 
 __device__ __forceinline__ Rect warp_rect(bool valid, int px, int py) {
   const unsigned all = 0xffffffffu;
-  const int x0 = __reduce_min_sync(all, valid ? px : INT_MAX);
-  const int x1 = __reduce_max_sync(all, valid ? px : INT_MIN);
-  const int y0 = __reduce_min_sync(all, valid ? py : INT_MAX);
-  const int y1 = __reduce_max_sync(all, valid ? py : INT_MIN);
-  return {0.5f * static_cast<float>(x0 + x1),
-          0.5f * static_cast<float>(y0 + y1),
-          0.5f * static_cast<float>(x1 - x0),
-          0.5f * static_cast<float>(y1 - y0)};
+  const float x0 = static_cast<float>(
+      __reduce_min_sync(all, valid ? px : INT_MAX));
+  const float x1 = static_cast<float>(
+      __reduce_max_sync(all, valid ? px : INT_MIN));
+  const float y0 = static_cast<float>(
+      __reduce_min_sync(all, valid ? py : INT_MAX));
+  const float y1 = static_cast<float>(
+      __reduce_max_sync(all, valid ? py : INT_MIN));
+  return {0.5f * (x0 + x1), 0.5f * (y0 + y1), 0.5f * (x1 - x0),
+          0.5f * (y1 - y0)};
 }
 
 // Staged entries are entry-major, 12 floats (three float4) each:

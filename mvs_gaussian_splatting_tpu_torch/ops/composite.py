@@ -4,7 +4,8 @@ fixed-capacity ``[T, K]`` per-tile tables (counterpart of the JAX package's
 ``ops/rasterize.py``).
 
 :func:`composite_padded` launches the hand-written CUDA kernel
-``csrc/padded_fwd.cu`` (B4) for CUDA tensors and runs its plain version
+``csrc/padded_fwd.cu`` (B4, B1's kernel body on the padded layout) for
+CUDA tensors and runs its plain version
 :func:`composite_padded_plain` (built on :func:`composite_tiles_jnp`) for
 CPU tensors. It is differentiable in the six attribute planes, ``rgb`` and
 ``bg``: its backward launches ``csrc/padded_bwd.cu`` (B5) for CUDA tensors
@@ -165,7 +166,10 @@ def composite_padded_bwd_plain(planes, rgb, valid, counts, bg, tiles_x: int,
 
 
 def _padded_fwd(planes, rgb, valid, counts, bg, tiles_x: int, tile_w: int,
-                tile_h: int):
+                tile_h: int, order=None):
+    """B4 on CUDA tensors, its plain version on CPU tensors → (out, final_T).
+    ``order``: the tile order B4 walks, :func:`heaviest_first` of
+    ``counts`` (taken here when not given)."""
     global launches
     _check(planes, rgb, valid, counts, bg, tile_w, tile_h)
     if planes.device.type == "cpu":
@@ -181,12 +185,15 @@ def _padded_fwd(planes, rgb, valid, counts, bg, tiles_x: int, tile_w: int,
     final_t = torch.empty((t, p), dtype=torch.float32, device=planes.device)
     if t == 0:
         return out, final_t
+    if order is None:
+        order = heaviest_first(counts)
+    check_order(order, counts)
     with torch.cuda.device(planes.device):
         err = kernels.library().gs_padded_fwd(
             planes.data_ptr(), rgb.data_ptr(), valid.data_ptr(),
-            counts.data_ptr(), bg.data_ptr(), out.data_ptr(),
-            final_t.data_ptr(), t, k, tiles_x, tile_w, tile_h,
-            torch.cuda.current_stream(planes.device).cuda_stream)
+            counts.data_ptr(), order.data_ptr(), bg.data_ptr(),
+            out.data_ptr(), final_t.data_ptr(), t, k, tiles_x, tile_w,
+            tile_h, torch.cuda.current_stream(planes.device).cuda_stream)
     if err != 0:
         raise RuntimeError(f"gs_padded_fwd launch failed: CUDA error {err}")
     launches += 1
@@ -245,14 +252,15 @@ def composite_padded_bwd(planes, rgb, valid, counts, bg, tiles_x: int,
 
 class _PaddedComposite(torch.autograd.Function):
     """B4 forward, B5 backward; gradients flow to the planes, rgb and bg.
-    B5's tile order is taken once, in the forward."""
+    The tile order is taken once, for both kernels."""
 
     @staticmethod
     def forward(ctx, planes, rgb, valid, counts, bg, tiles_x, tile_w, tile_h):
+        order = heaviest_first(counts) if counts.is_cuda else None
         out, final_t = _padded_fwd(planes, rgb, valid, counts, bg, tiles_x,
-                                   tile_w, tile_h)
+                                   tile_w, tile_h, order)
         ctx.geometry = (tiles_x, tile_w, tile_h)
-        ctx.order = heaviest_first(counts) if counts.is_cuda else None
+        ctx.order = order
         ctx.save_for_backward(planes, rgb, valid, counts, bg, out, final_t)
         return out, final_t
 

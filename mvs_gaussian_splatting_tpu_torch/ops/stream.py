@@ -12,7 +12,8 @@ Binning lays all tile instances out in one packed attribute array
 ``csrc/stream_fwd.cu`` for CUDA tensors and runs its plain version for CPU
 tensors. The kernels walk warps of compact 8×4 pixel blocks and skip an
 entry for a warp its cull box misses (:func:`cull_box`), which changes no
-output. It is differentiable in ``attrs`` and ``bg``: its backward is
+output; they take any tile shape, walking a tile that one CTA cannot cover
+as parts (:func:`tile_parts`). It is differentiable in ``attrs`` and ``bg``: its backward is
 :func:`composite_stream_bwd`, which launches ``csrc/stream_bwd.cu`` or
 ``csrc/stream_bwd_fast.cu`` for CUDA tensors and runs its plain version for
 CPU tensors. Two modes, as in the JAX package:
@@ -35,8 +36,9 @@ import torch
 ROWS = 16
 CHUNK = 128   # slack columns at the tail of the stream (JAX layout)
 
-MAX_TILE_PIXELS = 1024   # the kernels run one thread per pixel
-FAST_BWD_SIDE = 64       # B3b's pixel moments stay exact in TF32 up to here
+CTA_PIXELS = 1024    # a kernel's CTA runs one thread per pixel, this many
+PART_SIDE = 32       # the side of a part, where a tile needs several
+FAST_BWD_SIDE = 64   # B3b's one-part sides: its moments exact in TF32
 
 # Kernel launches, per kernel: B1 and B3f by composite_stream, B2 and B3b
 # by composite_stream_bwd (the CPU path counts none).
@@ -70,22 +72,29 @@ def _check(attrs, seg_start, counts, bg, tile_ids, tile_w, tile_h):
         raise ValueError(why)
 
 
-def tile_limit(tile_w: int, tile_h: int, fast: bool = False):
+def tile_limit(tile_w: int, tile_h: int):
     """Why the composite kernels cannot take ``tile_w`` × ``tile_h`` tiles,
-    or None: they run one thread per pixel, at most MAX_TILE_PIXELS a tile
-    (refused on every device, so that the CPU path refuses what the card
-    would); with ``fast``, the fast backward (B3b) on a card, which keeps
-    its pixel moments exact in TF32 only for sides up to FAST_BWD_SIDE. Any
-    other shape runs, a multiple of 32 pixels or not."""
-    if not 0 < tile_w * tile_h <= MAX_TILE_PIXELS:
-        return (f"tile {tile_w}x{tile_h} has {tile_w * tile_h} pixels: the "
-                "composite kernels run one thread per pixel, at most "
-                f"{MAX_TILE_PIXELS} a tile")
-    if fast and max(tile_w, tile_h) > FAST_BWD_SIDE:
-        return (f"tile {tile_w}x{tile_h}: the fast-math backward keeps its "
-                "pixel moments exact in TF32 only for sides of at most "
-                f"{FAST_BWD_SIDE}")
-    return None
+    or None: only an empty tile is refused (on every device, so that the
+    CPU path refuses what the card would). Any other shape runs, as in the
+    JAX package: a tile that one CTA cannot cover is walked as parts
+    (:func:`tile_parts`)."""
+    if tile_w > 0 and tile_h > 0:
+        return None
+    return f"tile {tile_w}x{tile_h} is empty: a tile needs a pixel"
+
+
+def tile_parts(tile_w: int, tile_h: int, max_side: int = CTA_PIXELS):
+    """(part_w, part_h, parts_x, parts_y): the grid of pixel parts a
+    kernel's CTA walks one after another on a ``tile_w`` × ``tile_h`` tile,
+    the mirror of ``csrc/stream_common.cuh:tile_parts``. One part, the tile
+    itself, where it has at most CTA_PIXELS pixels and sides of at most
+    ``max_side`` (FAST_BWD_SIDE for B3b, no limit for the others); else
+    parts of min(side, PART_SIDE) pixels a side, the right and bottom ones
+    cut to the tile."""
+    if tile_w * tile_h <= CTA_PIXELS and max(tile_w, tile_h) <= max_side:
+        return tile_w, tile_h, 1, 1
+    w, h = min(tile_w, PART_SIDE), min(tile_h, PART_SIDE)
+    return w, h, -(-tile_w // w), -(-tile_h // h)
 
 
 def check_order(order, counts):
@@ -101,7 +110,7 @@ def check_order(order, counts):
 
 
 def heaviest_first(counts):
-    """The order in which B1, B3f, B3b, B2 and B5 walk the tiles: by count,
+    """The order in which the six kernels walk the tiles: by count,
     descending (int64 tile indices), so that the last wave of CTAs holds
     the light tiles."""
     return torch.argsort(counts, descending=True)
@@ -216,9 +225,6 @@ def composite_stream_bwd(attrs, seg_start, counts, bg, tile_ids,
                      tile_h, out, final_t, g_out, g_tfin)
     if attrs.device.type != "cuda":
         raise ValueError(f"no stream kernel for device {attrs.device}")
-    why = tile_limit(tile_w, tile_h, fast)
-    if why:
-        raise ValueError(why)
     from .. import kernels
 
     # B2 visits only this call's segments: zeros elsewhere (subset calls,

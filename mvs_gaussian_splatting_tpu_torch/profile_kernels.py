@@ -15,20 +15,24 @@ their own beside the real one, and runs each kernel on the retained
 the flagship's training layout (32×16 tiles, 512 tiles per Gaussian, tiers
 (4, 12, 64) at (0.25, 0.1, 0.01)), B4 and B5 on padded tables holding the
 same tiles' entries (K the longest segment, rounded up to 32), B1 on the
-offline eval layout (16×16). ``chip_smoke.py`` calls :func:`kernel_split`
-on its own streams. Needs a card; the section library is a measuring build
-only, never the one the port runs.
+offline eval layout (16×16) and, where B4 runs too, on the training streams
+(``stream_fwd_on_train``: the entries B4 walks). ``chip_smoke.py`` calls
+:func:`kernel_split` on its own streams. Needs a card; the section library
+is a measuring build only, never the one the port runs.
 
 ``--csrc`` points it at another tree's kernels with the same entry points;
 ``--baseline`` names a further tree (repeatable), profiled in turns with
 it on the same streams in one process (the baselines, csrc, then back in
 reverse): an A/B, or an ablation, inside one call; each tree's libraries
 are named after the two directories above its ``csrc``. ``--kernels``
-profiles a subset. A tree from before the exact backwards' redesign (whose
-B2 and B5 take no tile order and carry no section counters, nor does its
-B4) is run with its own signatures (:data:`LEGACY`): its B2, B4 and B5
-get times and their SASS loop, no split. Against the parent commit, from
-the checkout's root (``build/`` is gitignored and reaches the card)::
+profiles a subset; ``--tile WxH`` another training tile (64x32: two parts
+a tile). An older tree is run with its own signatures and kernel
+names (:data:`LEGACY`, :data:`MANGLED`): one from before B4's redesign
+(2a469fe and earlier) has a B4 that takes no tile order; one from before the
+exact backwards' redesign (ab6b601 and earlier) also B2 and B5 that take
+none and carry no section counters (times and SASS loop, no split).
+Against the parent commit, from the checkout's root (``build/`` is
+gitignored and reaches the card)::
 
     mkdir -p build/parent
     git archive <parent> mvs_gaussian_splatting_tpu_torch/csrc \\
@@ -112,30 +116,52 @@ SETTER = {"stream_fwd": "gs_stream_fwd_sections",
           "stream_bwd": "gs_stream_bwd_sections",
           "padded_fwd": "gs_padded_fwd_sections",
           "padded_bwd": "gs_padded_bwd_sections"}
-# a substring of each kernel's mangled name
-MANGLED = {"stream_fwd": "stream_fwd_kernelILb0E",
-           "stream_fwd_fast": "stream_fwd_kernelILb1E",
-           "stream_bwd_fast": "stream_bwd_fast_kernel",
-           "stream_bwd": "StreamSlots",
-           "padded_fwd": "padded_fwd_kernel",
-           "padded_bwd": "PaddedSlots"}
+# substrings of each kernel's mangled name, the one-part instantiation (the
+# main path's) of this tree first, then those of older trees: before the
+# forward body was shared (2a469fe and earlier) and before the exact
+# backwards' redesign (ab6b601 and earlier)
+MANGLED = {"stream_fwd": ("fwd_kernelIN2gs11StreamSlotsELb0ELb0E",
+                          "stream_fwd_kernelILb0E"),
+           "stream_fwd_fast": ("fwd_kernelIN2gs11StreamSlotsELb1ELb0E",
+                               "stream_fwd_kernelILb1E"),
+           "stream_bwd_fast": ("stream_bwd_fast_kernelILb0E",
+                               "22stream_bwd_fast_kernelE"),
+           "stream_bwd": ("15StreamGradSlotsELb0E",
+                          "exact_bwd_kernelINS_11StreamSlots",
+                          "17stream_bwd_kernel"),
+           "padded_fwd": ("fwd_kernelIN2gs11PaddedSlotsELb0ELb0E",
+                          "17padded_fwd_kernel"),
+           "padded_bwd": ("15PaddedGradSlotsELb0E",
+                          "exact_bwd_kernelINS_11PaddedSlots",
+                          "17padded_bwd_kernel")}
+
+
+def parts_mangled(kernel: str) -> str:
+    """The multi-part instantiation's name substring (its last template
+    flag set) of ``kernel`` in this tree."""
+    name = MANGLED[kernel][0]
+    at = name.rindex("Lb0E")
+    return name[:at] + "Lb1E" + name[at + 4:]
+
+
 # (entry point, its first argument) of each kernel's occupancy report
 OCCUPANCY = {"stream_fwd": ("gs_stream_fwd_occupancy", 0),
              "stream_fwd_fast": ("gs_stream_fwd_occupancy", 1),
              "stream_bwd_fast": ("gs_stream_bwd_fast_occupancy", 0),
              "stream_bwd": ("gs_stream_bwd_occupancy", 0),
+             "padded_fwd": ("gs_padded_fwd_occupancy", 0),
              "padded_bwd": ("gs_padded_bwd_occupancy", 0)}
-# B2 and B5 as a tree from before the exact backwards' redesign (ab6b601)
-# builds them, for the A/B against it; such a tree lacks their occupancy
-# reports. Its kernels take no tile order (``argtypes``), have other names
-# (``mangled``) and leave the slots they do not visit to a zero-filled
-# output. Every difference of that tree is here and in :func:`legacy`.
+# Kernels as an older tree builds them, for the A/B against it; such a tree
+# lacks their occupancy reports (:func:`legacy`). B4 before its redesign
+# (2a469fe and earlier) takes no tile order; B2 and B5 before theirs
+# (ab6b601 and earlier) take none either and leave the slots they do not
+# visit to a zero-filled output. Their ``argtypes`` are here; their names
+# in :data:`MANGLED`.
 _P, _I = ctypes.c_void_p, ctypes.c_int
 LEGACY = {"stream_bwd": {"argtypes": [_P, ctypes.c_longlong] + [_P] * 8
-                         + [_I] * 4 + [_P],
-                         "mangled": "17stream_bwd_kernel"},
-          "padded_bwd": {"argtypes": [_P] * 10 + [_I] * 5 + [_P],
-                         "mangled": "17padded_bwd_kernel"}}
+                         + [_I] * 4 + [_P]},
+          "padded_fwd": {"argtypes": [_P] * 7 + [_I] * 5 + [_P]},
+          "padded_bwd": {"argtypes": [_P] * 10 + [_I] * 5 + [_P]}}
 # backward kernels that write every slot of their output themselves, so
 # their wrapper allocates it unfilled
 WRITES_EVERY_SLOT = ("padded_bwd",)
@@ -170,7 +196,7 @@ def build(csrc: Path = kernels.CSRC, name: str = "libgs_kernels"):
 
 def legacy(lib, kernel: str):
     """``kernel``'s :data:`LEGACY` record where ``lib`` is a tree from
-    before the exact backwards' redesign, else None."""
+    before that kernel's redesign, else None."""
     if kernel in LEGACY and not hasattr(lib, OCCUPANCY[kernel][0]):
         return LEGACY[kernel]
     return None
@@ -205,12 +231,13 @@ def launch(lib, kernel: str, call, bwd=None, order=None, into=None):
         grads = (attrs,)
     fn = getattr(lib, ENTRY[kernel])
     old = legacy(lib, kernel)
-    ordered = ()
     if old:
         fn.argtypes = old["argtypes"]
-    elif kernel != "padded_fwd":
-        ordered = ((heaviest_first(counts) if order is None
-                    else order).data_ptr(),)
+    elif order is None:
+        # held until the launch: freed earlier, its block could be handed
+        # to the outputs below and zero-filled before the kernel reads it
+        order = heaviest_first(counts)
+    ordered = () if old else (order.data_ptr(),)
     stream = torch.cuda.current_stream().cuda_stream
     if bwd is None:
         p = tile_w * tile_h
@@ -283,7 +310,7 @@ def kernel_split(main, sections, kernel: str, call, bwd=None, reps=5):
     if bwd is not None:
         res["wrapper_ms"] = _ms(lambda: wrapped(main, kernel, call, bwd),
                                 reps)
-    if kernel != "padded_fwd" and not legacy(main, kernel):
+    if not legacy(main, kernel):
         stream_order = torch.arange(t, device=dev)
         res["ms_stream_order"] = _ms(lambda: launch(
             main, kernel, call, bwd, stream_order, into=want), reps)
@@ -355,9 +382,8 @@ def sass_loops(path: Path, dump: Path | None = None) -> dict:
                 funcs[name]["labels"][lab] = addr
             pending = []
     out = {}
-    for key, mangled in MANGLED.items():
-        names = (mangled, LEGACY.get(key, {}).get("mangled"))
-        fn = next((v for name in names if name for k, v in funcs.items()
+    for key, names in MANGLED.items():
+        fn = next((v for name in names for k, v in funcs.items()
                    if name in k), None)
         if fn is None:
             continue
@@ -386,14 +412,19 @@ def sass_loops(path: Path, dump: Path | None = None) -> dict:
 
 
 def ptxas(log: Path) -> dict:
-    """Each kernel's ``-Xptxas -v`` lines (registers, spills) in ``log``."""
+    """Each kernel's ``-Xptxas -v`` lines (registers, spills) in ``log``:
+    the one-part instantiation's under its name, the multi-part one's (this
+    tree only) under ``<name>_parts``."""
     res = {}
-    for key, mangled in MANGLED.items():
-        for name in (mangled, LEGACY.get(key, {}).get("mangled")):
-            lines = kernels.ptxas_report(name, log) if name else None
+    for key, names in MANGLED.items():
+        for name in names:
+            lines = kernels.ptxas_report(name, log)
             if lines:
                 res[key] = lines
                 break
+        lines = kernels.ptxas_report(parts_mangled(key), log)
+        if lines:
+            res[f"{key}_parts"] = lines
     return res
 
 
@@ -416,18 +447,23 @@ def issue_floor_ms(per_entry: float, warp_steps: int, mhz: float) -> float:
     return per_entry * warp_steps / (sms * ISSUES_PER_CLOCK * mhz * 1e6) * 1e3
 
 
-def tile_warps(tile_w: int, tile_h: int) -> int:
-    """Warps of a tile's CTA in B1, B3f, B3b, B2 and B5: one per 8×4 pixel
-    block, or per 32 pixels in row order where the blocks would need more
-    than 1,024 threads (``csrc/stream_common.cuh:tile_threads``)."""
-    blocks = -(-tile_w // 8) * -(-tile_h // 4)
-    return blocks if blocks * 32 <= 1024 else -(-(tile_w * tile_h) // 32)
+def tile_warps(tile_w: int, tile_h: int, max_side: int = 1024) -> int:
+    """Warps of a tile's CTA: one per 8×4 pixel block of its (largest) part,
+    or per 32 pixels in row order where the blocks would need more than
+    1,024 threads (``csrc/stream_common.cuh:tile_threads``, ``tile_parts``;
+    ``max_side`` as :func:`ops.stream.tile_parts` takes it)."""
+    from .ops.stream import tile_parts
+    w, h, _, _ = tile_parts(tile_w, tile_h, max_side)
+    blocks = -(-w // 8) * -(-h // 4)
+    return blocks if blocks * 32 <= 1024 else -(-(w * h) // 32)
 
 
 def occupancy(lib, tile_w: int, tile_h: int) -> dict:
     """Resident CTAs per SM, registers per thread and resident warps per SM
-    of each kernel with an occupancy report (B1, B3f, B3b, B2, B5) at
-    ``tile_w`` × ``tile_h``, from the library's own launch configuration."""
+    of each kernel with an occupancy report at ``tile_w`` × ``tile_h`` (the
+    instantiation that shape runs, one part or parts), from the library's
+    own launch configuration."""
+    from .ops.stream import FAST_BWD_SIDE
     res = {}
     for key, (fn, mode) in OCCUPANCY.items():
         if not hasattr(lib, fn):
@@ -437,8 +473,10 @@ def occupancy(lib, tile_w: int, tile_h: int) -> dict:
                                ctypes.byref(regs))
         if err:
             raise RuntimeError(f"{fn} failed: CUDA error {err}")
+        side = FAST_BWD_SIDE if key == "stream_bwd_fast" else 1024
         res[key] = {"ctas_per_sm": ctas.value, "registers": regs.value,
-                    "warps_per_sm": ctas.value * tile_warps(tile_w, tile_h)}
+                    "warps_per_sm": ctas.value * tile_warps(tile_w, tile_h,
+                                                            side)}
     return res
 
 
@@ -458,9 +496,10 @@ def tables_from_stream(call):
             live.to(torch.float32), counts, bg, tiles_x, tile_w, tile_h)
 
 
-def _streams(n_views: int):
+def _streams(n_views: int, tile_w: int = 32, tile_h: int = 16):
     """(training calls, eval calls) of the retained model's first
-    ``n_views`` test views, at the training and the offline eval layout."""
+    ``n_views`` test views, at the training layout (``tile_w`` ×
+    ``tile_h`` tiles) and the offline eval layout."""
     from .cli.render import (adaptive_eval_config, eval_raster_config,
                              measure_tile_needs, params_from_ply)
     from .data.cameras import camera_from_json
@@ -481,7 +520,7 @@ def _streams(n_views: int):
                              device=dev)
     n = params.xyz.shape[0]
     train_cfg = raster_config_from_pipe(PipelineConfig(
-        tile_w=32, tile_h=16, max_tiles_per_gaussian=512,
+        tile_w=tile_w, tile_h=tile_h, max_tiles_per_gaussian=512,
         tier_budgets=(4, 12, 64), tier_fracs=(0.25, 0.1, 0.01)))
     base = eval_raster_config(PipelineConfig(), n_gaussians=n)
     eval_cfg = adaptive_eval_config(
@@ -538,6 +577,9 @@ def profile(main, sections, main_path, train, evals, dump=None,
         runs["stream_fwd"].append(kernel_split(main, sections, "stream_fwd",
                                                c))
     for k, c in enumerate(train):
+        if {"stream_fwd", "padded_fwd"} <= set(only):
+            runs.setdefault("stream_fwd_on_train", []).append(kernel_split(
+                main, sections, "stream_fwd", c))
         if "stream_fwd_fast" in only:
             runs["stream_fwd_fast"].append(kernel_split(
                 main, sections, "stream_fwd_fast", c))
@@ -564,7 +606,8 @@ def profile(main, sections, main_path, train, evals, dump=None,
     clock = sm_clock_mhz(lambda: launch(main, "stream_bwd_fast", call, b))
     res = {"clock": clock}
     for key, rows in runs.items():
-        res[key] = aggregate(rows, sass.get(key), clock["sm_mhz"])
+        res[key] = aggregate(rows, sass.get(key.split("_on_")[0]),
+                             clock["sm_mhz"])
     return res
 
 
@@ -604,6 +647,10 @@ def main(argv=None):
                     help="comma-separated kernels to profile (default all: "
                          + ", ".join(ENTRY) + ")")
     ap.add_argument("--views", type=int, default=5)
+    ap.add_argument("--tile", default="32x16",
+                    help="the training layout's tile, WxH (default the "
+                         "flagship's 32x16; a tile of more than 1,024 "
+                         "pixels runs the kernels' parts)")
     ap.add_argument("--out", type=Path, default=None,
                     help="also write the JSON here (and the SASS beside it)")
     args = ap.parse_args(argv)
@@ -623,7 +670,9 @@ def main(argv=None):
     unknown = set(args.kernels.split(",")) - set(ENTRY)
     if unknown:
         raise SystemExit(f"unknown kernels {sorted(unknown)}")
-    train, evals = _streams(args.views)
+    tile = tuple(int(v) for v in args.tile.split("x"))
+    shapes = sorted({(16, 16), (32, 16), tile})
+    train, evals = _streams(args.views, *tile)
     runs = []
     for csrc in trees:
         tag, main_lib, sec_lib, main_path, _ = libs[csrc]
@@ -631,8 +680,8 @@ def main(argv=None):
                 if args.out else None)
         runs.append({"csrc": str(csrc),
                      "ptxas": ptxas(main_path.with_suffix(".log")),
-                     "occupancy": {f"{tw}x16": occupancy(main_lib, tw, 16)
-                                   for tw in (16, 32)},
+                     "occupancy": {f"{tw}x{th}": occupancy(main_lib, tw, th)
+                                   for tw, th in shapes},
                      **profile(main_lib, sec_lib, main_path, train, evals,
                                dump, tuple(args.kernels.split(",")))})
     text = json.dumps({"card": smi, "runs": runs})

@@ -1,7 +1,8 @@
 """The port's composite wrappers (ops/stream.py, ops/composite.py) and
 their CUDA kernels: B1 and B3f (csrc/stream_fwd.cu), B2 (csrc/stream_bwd.cu),
 B3b (csrc/stream_bwd_fast.cu), B4 (csrc/padded_fwd.cu) and B5
-(csrc/padded_bwd.cu).
+(csrc/padded_bwd.cu), at every tile shape they take (tiles of more than
+1,024 pixels, or for B3b a side over 64, walked in parts).
 
 This file imports neither JAX nor the JAX package, so the tests marked
 ``gpu`` also run on a machine with a card and no JAX:
@@ -151,8 +152,8 @@ class TestWrapperOnCPU:
             a[0] = a[0].double()
         elif bad == "ids":
             a[4] = a[4].long()
-        elif bad == "tile":
-            a[6], a[7] = 64, 32
+        elif bad == "tile":       # empty: the one shape no kernel takes
+            a[6], a[7] = 0, 16
         else:
             a[0] = a[0][:, ::2]
         with pytest.raises((ValueError, TypeError)):
@@ -310,26 +311,24 @@ class TestBackwardKernel:
         assert float(attrs.grad.abs().max()) > 0
 
     def test_bad_launch_raises(self, cuda, monkeypatch):
-        # a side over 64 in fast mode: refused before any launch (B3b's
-        # pixel moments stay exact in TF32 only up to 64)
-        s = random_stream(3, tiles_x=2, tiles_y=3, tile_w=128, tile_h=4,
+        # an empty tile: refused before any launch
+        s = random_stream(3, tiles_x=2, tiles_y=3, tile_w=16, tile_h=4,
                           long_len=100)
-        a = _args(s, cuda)
+        a = list(_args(s, cuda))
         out, tfin = composite_stream(*a, fast=True)
         g = torch.zeros_like(out), torch.zeros_like(tfin)
-        with pytest.raises(ValueError, match="sides of at most 64"):
-            stream.composite_stream_bwd(*a, out, tfin, *g, fast=True)
-        # 2048 threads per block: the card refuses the launch, and the
-        # wrapper raises on the error code instead of returning zeros
+        a[7] = 0
+        with pytest.raises(ValueError, match="is empty"):
+            stream.composite_stream_bwd(*a, out[:, :0], tfin[:, :0],
+                                        g[0][:, :0], g[1][:, :0], fast=True)
+        # past the wrapper's check, the library refuses the shape itself,
+        # and the wrapper raises on the error code instead of returning
+        # zeros
         monkeypatch.setattr(stream, "tile_limit", lambda *args: None)
-        s = random_stream(4, tiles_x=2, tiles_y=2, tile_w=64, tile_h=32,
-                          long_len=100)
-        a = _args(s, cuda)
-        out = torch.zeros((4, 64 * 32, 3), device=cuda)
-        tfin = torch.ones((4, 64 * 32), device=cuda)
+        empty = torch.zeros((6, 0, 3), device=cuda)
         with pytest.raises(RuntimeError, match="gs_stream_bwd launch failed"):
-            stream.composite_stream_bwd(*a, out, tfin, torch.zeros_like(out),
-                                        torch.zeros_like(tfin))
+            stream.composite_stream_bwd(*a, empty, empty[..., 0], empty,
+                                        empty[..., 0])
         torch.cuda.synchronize()    # the refused launch left no fault behind
 
     def test_train_step_launches_both_kernels(self, cuda, monkeypatch):
@@ -496,15 +495,21 @@ class TestFastKernels:
         assert [x - y for x, y in zip(after, before)] == [0, 0, 1, 1, 0, 0]
 
 
+# tiles walked in parts: more than 1,024 pixels (64 x 32: 2 parts of 32 x
+# 32; 48 x 48: 4, three of them cut at the edges; 40 x 40: 4, cut to 8
+# pixels), and a side over 64 (128 x 8: one part in the forwards, 4 in B3b)
+LARGE = {"large_64x32": (64, 32), "large_48x48": (48, 48),
+         "large_40x40": (40, 40), "large_128x8": (128, 8)}
+
+
 def edge_stream(case, seed=11):
     """A random stream (4×3 tiles, tiles 2 and 3 longer than four batches
     of either kernel, a fifth of the entries far-centred wide splats) for
-    one edge case of the compact warp blocks and the per-warp cull (any
-    other name: the stream as made, on 32×16 tiles); returns (stream,
-    whether B3b takes its geometry: sides of at most 64)."""
+    one edge case of the compact warp blocks, the per-warp cull and the
+    pixel parts (any other name: the stream as made, on 32×16 tiles)."""
     tw, th = {"odd_24x10": (24, 10), "odd_24x4": (24, 4),
               "one_warp_8x4": (8, 4), "rows_512x2": (512, 2),
-              "threshold": (16, 16)}.get(case, (32, 16))
+              "threshold": (16, 16), **LARGE}.get(case, (32, 16))
     s = random_stream(seed, tiles_x=4, tiles_y=3, tile_w=tw, tile_h=th,
                       long_len=2700, far=0.2)
     a = s["attrs"]
@@ -563,7 +568,7 @@ def edge_stream(case, seed=11):
                                   np.nextafter(m, np.float32(1)))
         a[0, :n][pick] = ox[pick] + rng.randint(0, tw, int(pick.sum()))
         a[1, :n][pick] = oy[pick] + rng.randint(0, th, int(pick.sum()))
-    return s, max(tw, th) <= stream.FAST_BWD_SIDE
+    return s
 
 
 def finite_row_gaps(got, want, call, batch=64):
@@ -613,16 +618,16 @@ class TestCompactBlocksAndCull:
     B3b's 64-entry batch; a tile too thin for 8×4 blocks within 1,024
     threads, whose warps take pixel rows), more than four batches, a tile
     that saturates in its first batch, cull boxes grazing a block, degenerate
-    conics, opacities at 1/255. B1 is bit-equal to its plain version (the
-    cull is exact), B3f within 2e-3, B3b within 5e-3 per row with exact
-    zeros outside the segments and in rows 9-15."""
+    conics, opacities at 1/255, and tiles walked in parts. B1 is bit-equal
+    to its plain version (the cull is exact), B3f within 2e-3, B3b within
+    5e-3 per row with exact zeros outside the segments and in rows 9-15."""
 
     @pytest.mark.parametrize("case", ["odd_24x10", "odd_24x4",
                                       "one_warp_8x4", "rows_512x2",
                                       "saturate", "graze", "degenerate",
-                                      "threshold"])
+                                      "threshold", *LARGE])
     def test_kernels_match_plain(self, cuda, case):
-        s, with_bwd = edge_stream(case)
+        s = edge_stream(case)
         a = _args(s, cuda)
         out, tfin = composite_stream(*a)
         ref, rtfin = composite_stream_plain(*a)
@@ -640,18 +645,21 @@ class TestCompactBlocksAndCull:
             one = [a[0], a[1][2:3], a[2][2:3], a[3], a[4][2:3], *a[5:]]
             _, _, visits = composite_stream_plain(*one, count_visits=True)
             assert visits <= 8 * s["tile_w"] * s["tile_h"]
-        if with_bwd:
-            g_out, g_tfin = (c.to(cuda) for c in _cotangents(s, 3))
-            got, _ = stream.composite_stream_bwd(*a, fout, ftfin, g_out,
-                                                 g_tfin, fast=True)
-            want, _ = stream.composite_stream_bwd_fast_plain(
-                *a, fref, frtfin, g_out, g_tfin)
-            gaps = finite_row_gaps(got[:9], want[:9], a)
-            msg += "; B3b per-row " + " ".join(f"{g:.1e}" for g in gaps)
-            assert max(gaps) <= FAST_REL, msg
-            outside = ~_segment_mask(s, cuda)
-            assert bool((got[:, outside] == 0).all())
-            assert bool((got[9:] == 0).all())
+        g_out, g_tfin = (c.to(cuda) for c in _cotangents(s, 3))
+        got, _ = stream.composite_stream_bwd(*a, fout, ftfin, g_out, g_tfin,
+                                             fast=True)
+        again, _ = stream.composite_stream_bwd(*a, fout, ftfin, g_out,
+                                               g_tfin, fast=True)
+        want, _ = stream.composite_stream_bwd_fast_plain(
+            *a, fref, frtfin, g_out, g_tfin)
+        gaps = finite_row_gaps(got[:9], want[:9], a)
+        msg += "; B3b per-row " + " ".join(f"{g:.1e}" for g in gaps)
+        assert max(gaps) <= FAST_REL, msg
+        # bit for bit, NaN (from a degenerate entry's zero moments) included
+        assert torch.equal(got.view(torch.int32), again.view(torch.int32))
+        outside = ~_segment_mask(s, cuda)
+        assert bool((got[:, outside] == 0).all())
+        assert bool((got[9:] == 0).all())
         print(msg)
 
 
@@ -682,9 +690,9 @@ class TestExactBackwards:
     @pytest.mark.parametrize("case", ["odd_24x10", "odd_24x4",
                                       "one_warp_8x4", "rows_512x2",
                                       "saturate", "graze", "degenerate",
-                                      "threshold", "long_32x16"])
+                                      "threshold", "long_32x16", *LARGE])
     def test_b2_matches_plain(self, cuda, case):
-        s, _ = edge_stream(case)
+        s = edge_stream(case)
         a = _args(s, cuda)
         out, tfin = composite_stream(*a)
         g_out, g_tfin = (c.to(cuda) for c in _cotangents(s, 4))
@@ -703,7 +711,8 @@ class TestExactBackwards:
         assert bool((got[:, outside] == 0).all())
         assert bool((got[9:] == 0).all())
 
-    @pytest.mark.parametrize("geometry", ["24x10", "8x4", "512x2", "32x16"])
+    @pytest.mark.parametrize("geometry", ["24x10", "8x4", "512x2", "32x16",
+                                          "64x32", "48x48", "128x8"])
     def test_b5_matches_plain(self, cuda, geometry):
         tw, th = (int(v) for v in geometry.split("x"))
         s = random_tables(6, tiles_x=4, tiles_y=3, tile_w=tw, tile_h=th,
@@ -784,6 +793,28 @@ class TestPaddedKernels:
         assert bool((gpl[:, dead] == 0).all()) and bool((grgb[dead] == 0).all())
         torch.testing.assert_close(gbg, wbg, rtol=1e-6, atol=0)
 
+    @pytest.mark.parametrize("geometry", ["24x10", "512x2", "64x32", "48x48",
+                                          "128x8"])
+    def test_b4_any_tile(self, cuda, geometry):
+        """B4 on the shared forward body at odd, thin and large tiles (walked
+        in parts): within 2e-4 of its plain version, two launches equal to
+        the bit."""
+        tw, th = (int(v) for v in geometry.split("x"))
+        s = random_tables(7, tiles_x=4, tiles_y=3, tile_w=tw, tile_h=th,
+                          k=384)
+        a = _padded_args(s, cuda)
+        before = composite.launches
+        out, tfin = composite._padded_fwd(*a)
+        again = composite._padded_fwd(*a)
+        torch.cuda.synchronize()
+        assert composite.launches == before + 2
+        ref, rtfin = composite.composite_padded_plain(*a)
+        gap = max(float((out - ref).abs().max()),
+                  float((tfin - rtfin).abs().max()))
+        print(f"{geometry}: B4 vs plain {gap:.2e}")
+        assert gap <= TOL
+        assert torch.equal(out, again[0]) and torch.equal(tfin, again[1])
+
     def test_autograd_routes_to_padded_kernels(self, cuda, monkeypatch):
         for name in ("composite_padded_plain", "composite_padded_bwd_plain",
                      "composite_tiles_jnp"):
@@ -825,8 +856,8 @@ class TestPaddedWrapperOnCPU:
             a[2] = a[2] > 0
         elif bad == "counts":
             a[3] = a[3].long()
-        else:
-            a[6], a[7] = 64, 32
+        else:                     # an empty tile
+            a[6], a[7] = 16, 0
         with pytest.raises((ValueError, TypeError)):
             composite._padded_fwd(*a)
 
@@ -844,3 +875,83 @@ class TestPaddedWrapperOnCPU:
         dead = torch.from_numpy(s["valid"] == 0)
         assert float(gpl.abs().max()) > 0
         assert not gpl[:, dead].any() and not grgb[dead].any()
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("mode", ["fast", "exact", "pallas"])
+def test_train_step_at_64x32(cuda, monkeypatch, mode):
+    """One training step at 64×32 tiles (two parts a tile) in each mode
+    launches that mode's two kernels once each and nothing else."""
+    from mvs_gaussian_splatting_tpu_torch.ops.rasterize import RasterConfig
+    for mod, names in ((stream, ("composite_stream_plain",
+                                 "composite_stream_bwd_plain",
+                                 "composite_stream_fast_plain",
+                                 "composite_stream_bwd_fast_plain")),
+                       (composite, ("composite_padded_plain",
+                                    "composite_padded_bwd_plain",
+                                    "composite_tiles_jnp"))):
+        for name in names:
+            monkeypatch.setattr(mod, name, _refuse)
+    cfg = {"fast": RasterConfig(tile_w=64, tile_h=32, fast_math=True),
+           "exact": RasterConfig(tile_w=64, tile_h=32),
+           "pallas": RasterConfig(backend="pallas", tile_w=64, tile_h=32,
+                                  tile_capacity=512)}[mode]
+    want = {"fast": [0, 0, 1, 1, 0, 0], "exact": [1, 1, 0, 0, 0, 0],
+            "pallas": [0, 0, 0, 0, 1, 1]}[mode]
+    before = _launch_counts()
+    _one_train_step(cuda, cfg)
+    after = _launch_counts()
+    assert [x - y for x, y in zip(after, before)] == want
+
+
+@pytest.fixture
+def baseline(cuda):
+    """The kernel library of another tree's ``csrc`` (``$GS_BASELINE_CSRC``,
+    for instance the parent commit's, unpacked with ``git archive``), built
+    by ``profile_kernels.build``; skips where the variable is not set."""
+    import os
+
+    from mvs_gaussian_splatting_tpu_torch import kernels, profile_kernels
+    csrc = os.environ.get("GS_BASELINE_CSRC")
+    if not csrc:
+        pytest.skip("GS_BASELINE_CSRC names no baseline tree")
+    return (profile_kernels.build(pathlib.Path(csrc), "libgs_baseline")[0],
+            kernels.library())
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("geometry", ["16x16", "32x16"])
+def test_one_part_tiles_bit_equal_to_baseline(baseline, geometry):
+    """At tiles of one part (the main path's 16×16 and 32×16) every kernel
+    gives the baseline tree's bits: B1, B3f, B2, B3b, B5 run their
+    one-part instantiation, the parent's code; B4 its redesign, which
+    replays the same per-entry arithmetic in the same order.
+
+        GS_BASELINE_CSRC=build/parent/mvs_gaussian_splatting_tpu_torch/csrc \
+            python -m pytest --noconftest -p no:cacheprovider -m gpu \
+            tests/test_torch_kernels.py -k baseline
+    """
+    from mvs_gaussian_splatting_tpu_torch import profile_kernels as pk
+    old, new = baseline
+    tw = 16 if geometry == "16x16" else 32
+    s = random_stream(8, tiles_x=6, tiles_y=5, tile_w=tw, tile_h=16,
+                      far=0.2)
+    call = tuple(_args(s, "cuda"))
+    tab = random_tables(8, tiles_x=6, tiles_y=5, tile_w=tw, k=384)
+    tables = tuple(_padded_args(tab, "cuda"))
+    gaps, equal = {}, {}
+    for kernel in pk.ENTRY:
+        c = tables if kernel.startswith("padded") else call
+        bwd = None
+        if kernel.endswith(("bwd", "bwd_fast")):
+            fwd = {"stream_bwd": "stream_fwd", "padded_bwd": "padded_fwd",
+                   "stream_bwd_fast": "stream_fwd_fast"}[kernel]
+            bwd = pk.backward_inputs(new, c, 8, fwd)
+        got = pk.launch(new, kernel, c, bwd)
+        want = pk.launch(old, kernel, c, bwd)
+        torch.cuda.synchronize()
+        gaps[kernel] = max(float((a - b).abs().max())
+                           for a, b in zip(got, want))
+        equal[kernel] = all(torch.equal(a, b) for a, b in zip(got, want))
+    print(f"{geometry}: max abs against the baseline {gaps}")
+    assert all(equal.values()), gaps

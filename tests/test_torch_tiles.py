@@ -1,16 +1,17 @@
-"""The tile shapes the port's composite kernels take, and the CLIs' refusal
-of the others before any data is read.
+"""The tile shapes the port's composite kernels take, the part grid they walk
+a large tile in, and the CLIs' refusal of an empty tile before any data is
+read.
 
-The kernels run one thread per pixel, at most 1,024 pixels a tile, on
-every device; the fast backward (B3b) keeps its pixel moments exact in TF32
-only for sides up to 64, on a card. Within those limits every shape runs,
-multiples of 32 pixels or not (the exact backwards B2 and B5 since their
-redesign). The JAX package checks none of these (it has no such kernels):
-``ops/stream.py:tile_limit`` names the port's limits, and ``cli/train.py``
-and ``cli/render.py`` refuse a tile that breaks them right after parsing
-their arguments; the ``jnp`` backend runs no kernel and takes any tile.
-Also the tile order the kernels walk: ``ops/stream.py:check_order`` refuses
-one they would read out of bounds.
+The kernels run one thread per pixel in one CTA per tile, at most 1,024
+pixels a CTA; a tile that one CTA cannot cover (more pixels, or for the
+fast backward B3b a side over 64, past which its pixel moments would not
+be exact in TF32) is walked by its CTA as a grid of parts of at most 32×32
+(``ops/stream.py:tile_parts``, the mirror of
+``csrc/stream_common.cuh:tile_parts``). So every shape the JAX package
+takes runs, on every device: ``ops/stream.py:tile_limit`` refuses only an
+empty tile, and ``cli/train.py`` and ``cli/render.py`` refuse it right
+after parsing their arguments. Also the tile order the kernels walk:
+``ops/stream.py:check_order`` refuses one they would read out of bounds.
 """
 
 import pytest
@@ -18,29 +19,35 @@ import torch
 
 from mvs_gaussian_splatting_tpu_torch.cli import render as render_cli
 from mvs_gaussian_splatting_tpu_torch.cli import train as train_cli
-from mvs_gaussian_splatting_tpu_torch.ops.stream import (check_order,
+from mvs_gaussian_splatting_tpu_torch.ops.stream import (FAST_BWD_SIDE,
+                                                         check_order,
                                                          heaviest_first,
-                                                         tile_limit)
+                                                         tile_limit,
+                                                         tile_parts)
 
 torch.set_num_threads(1)
 
 
 @pytest.mark.parametrize("cli,flags,refused", [
     ("train", ["--tile_w", "64", "--tile_h", "32", "--device", "cpu"],
-     "at most 1024 a tile"),
-    ("render", ["--tile_w", "64", "--tile_h", "32"], "at most 1024 a tile"),
-    # fast math on a card: B3b's sides; refused before the card is touched
+     None),
+    ("render", ["--tile_w", "64", "--tile_h", "32"], None),
+    # fast math on a card: B3b walks the 128-wide tile in parts
     ("train", ["--tile_w", "128", "--tile_h", "8", "--device", "cuda"],
-     "sides of at most 64"),
-    # taken: exact mode, the CPU's plain fast backward, the jnp backend
+     None),
     ("train", ["--tile_w", "128", "--tile_h", "8", "--device", "cuda",
                "--no-fast_math"], None),
     ("train", ["--tile_w", "128", "--tile_h", "8", "--device", "cpu"], None),
     ("render", ["--tile_w", "64", "--tile_h", "32", "--backend", "jnp"],
      None),
+    # an empty tile, on every backend and device
+    ("train", ["--tile_w", "0", "--tile_h", "16", "--device", "cuda",
+               "--backend", "pallas"], "is empty"),
+    ("render", ["--tile_w", "16", "--tile_h", "0", "--backend", "jnp"],
+     "is empty"),
 ])
 def test_cli_tile_limits(cli, flags, refused, tmp_path, capsys):
-    """A refused tile stops the CLI with its limit named, before the
+    """A refused tile stops the CLI with its reason named, before the
     (missing) scene or model is read; a tile it takes gets as far as
     reading them, which raises FileNotFoundError (render) or ValueError
     (train: no scene type recognised)."""
@@ -63,20 +70,59 @@ def test_cli_tile_limits(cli, flags, refused, tmp_path, capsys):
 
 
 @pytest.mark.parametrize("shape,fast,refused", [
-    ((64, 32), False, "1024"),
-    ((0, 16), False, "1024"),
-    ((128, 8), True, "64"),
+    ((64, 32), False, None),   # 2 parts
+    ((0, 16), False, "is empty"),
+    ((128, 8), True, None),    # B3b: 4 parts
     ((128, 8), False, None),
     ((24, 10), True, None),    # not whole warps: fine
     ((8, 4), True, None),
     ((512, 2), False, None),   # row-order warps
+    ((-4, -4), False, "is empty"),
 ])
 def test_tile_limit(shape, fast, refused):
-    why = tile_limit(*shape, fast)
+    """Only an empty tile is refused, in either mode."""
+    why = tile_limit(*shape)
     if refused is None:
         assert why is None
+        side = FAST_BWD_SIDE if fast else 1024
+        w, h, nx, ny = tile_parts(*shape, side)
+        assert w * h <= 1024 and nx * w >= shape[0] and ny * h >= shape[1]
     else:
-        assert why is not None and f"at most {refused}" in why
+        assert why is not None and refused in why
+
+
+@pytest.mark.parametrize("shape,side,want", [
+    # within one CTA: the tile itself, whatever its warps' layout
+    ((16, 16), 1024, (16, 16, 1, 1)),
+    ((32, 16), 1024, (32, 16, 1, 1)),
+    ((24, 10), 1024, (24, 10, 1, 1)),
+    ((512, 2), 1024, (512, 2, 1, 1)),
+    ((128, 8), 1024, (128, 8, 1, 1)),
+    ((64, 16), FAST_BWD_SIDE, (64, 16, 1, 1)),
+    # parts of at most 32 x 32, the last row and column cut to the tile
+    ((64, 32), 1024, (32, 32, 2, 1)),
+    ((48, 48), 1024, (32, 32, 2, 2)),
+    ((33, 40), 1024, (32, 32, 2, 2)),
+    ((2048, 1), 1024, (32, 1, 64, 1)),
+    ((128, 8), FAST_BWD_SIDE, (32, 8, 4, 1)),
+    ((8, 100), FAST_BWD_SIDE, (8, 32, 1, 4)),
+])
+def test_tile_parts(shape, side, want):
+    """The part grid: its nominal part shape and count; every pixel of the
+    tile lies in exactly one part, the parts at the right and bottom edges
+    masked to the tile."""
+    got = tile_parts(*shape, side)
+    assert got == want
+    w, h, nx, ny = got
+    tw, th = shape
+    cover = torch.zeros((th, tw), dtype=torch.int32)
+    for i in range(nx * ny):
+        x0, y0 = (i % nx) * w, (i // nx) * h
+        pw, ph = min(w, tw - x0), min(h, th - y0)
+        assert pw > 0 and ph > 0 and pw * ph <= 1024
+        assert max(pw, ph) <= side
+        cover[y0:y0 + ph, x0:x0 + pw] += 1
+    assert bool((cover == 1).all())
 
 
 @pytest.mark.parametrize("order,refused", [
