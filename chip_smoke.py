@@ -135,10 +135,43 @@ padded-table backend. Phases, one JSON line each:
    step); each kernel's time alone on the first test view at 16×16 and
    64×32, clip-free;
 
+12. dataset: the flagship's dataset regenerated by the port's
+   ``ref_scale_validation.write_dataset`` in a temporary directory (120
+   views at 1237×822, 150,000 GT points, 54,000 init points, seed 0, the
+   specular style, on the TPU run's operator: stream, exact, 32×16 tiles,
+   1,024 slots a tile, 32 tiles per Gaussian): each of the 15 test views
+   (0, 8, ..., 112) at least 45 dB against the retained ground truth
+   (``runs/specfinal/model/test/ours_25000/gt``), every pose within 1e-9 of
+   ``cameras.json``'s, one B1 launch per view; the per-view PSNRs and the
+   time to write it are printed;
+13. grow_resume, grow mode on that dataset (105 train views, 15 held
+   out): the retained model as a checkpoint at iteration 14,600 (capacity
+   262,144, 115,320 alive rows, zero moments; the grow checkpoint with
+   uniform direction logits), inside the speculation window, three grow
+   rounds before ``densify_until_iter``; resumed 300 steps in the default
+   fast-math mode with ``--grow_dir --spec_capacity 4096 --growdirs_lr
+   0.01`` and without (vanilla), each traced at its iterations 100-120, and
+   20 exact grow steps (``--no-fast_math``: B2 takes the augmented set).
+   Checks per arm: finite losses, no non-finite gradient rows, one forward
+   and one backward launch of the arm's mode per step and none of the
+   other mode's; for grow: every step renders ``n_render + 8192`` rows,
+   every grow round grows Gaussians and resets the rows it selected to
+   uniform, and the direction logits of rows it did not select have moved
+   off uniform. Held-out test PSNR: the vanilla arm at most 0.1 dB below
+   the checkpoint's at the run's end (PR 4's criterion); the grow arm,
+   whose held-out PSNR dips while a model trained without speculative rows
+   adapts to them (the JAX package's loop does the same), recovering (at
+   the end above its value at the first round) and within 0.1 dB of the
+   exact grow arm at iteration 14,620; its drop, its gap to the vanilla
+   arm and the PSNR of each arm's state after the last round are printed,
+   with the step medians, the traced device time a step, the alive counts
+   and the peak memory of each arm;
+
 then the ``kernels`` line (B1, B2, B3f, B3b, B4 and B5, with their launches
 on the main paths: the render slice of phase 4, the two arms of phase 7
-(not its control), phase 8, phase 9, phase 9b and phase 11's renders and
-training, each counted from zero)
+(not its control), phase 8, phase 9, phase 9b, phase 11's renders and
+training, phase 12's dataset and phase 13's three arms, each counted from
+zero)
 and last ``{"ok": true, "device": {...}}``. A failed check raises after the
 measurements and exits non-zero without printing those two lines; without a
 card it exits non-zero before printing any result. It writes nothing into
@@ -213,6 +246,20 @@ LARGE_STEPS = 5
 # the flagship recipe's raster flags (runs/specfinal/NOTE.md,
 # scripts/ref_scale_validation.py), in the default fast-math mode; the
 # exact arm adds --no-fast_math
+# phase 12: the flagship's dataset as scripts/ref_scale_validation.py
+# writes it (runs/specfinal); its test views are every 8th (llffhold)
+FLAGSHIP = dict(width=1237, height=822, n_views=120, n_gt=150_000,
+                n_init=54_000, seed=0, style="specular")
+LLFFHOLD = 8
+POSE_TOL = 1e-9               # cameras.json vs the orbit, abs (relative fx)
+# phase 13: grow mode resumed inside the speculation window, three grow
+# rounds (14,700, 14,800, 14,900) before densify_until_iter
+GROW_ITER = 14_600
+GROW_CAPACITY = 262_144
+GROW_SPEC = 4096              # --spec_capacity: 8,192 speculative rows
+GROW_STEPS = 300
+GROW_EXACT_STEPS = 20
+GROW_PSNR_DROP = 0.1          # held-out test PSNR, dB over the run
 TRAIN_FLAGS = ["--eval", "--resolution", "1",
                "--tile_w", "32", "--tile_h", "16",
                "--max_tiles_per_gaussian", "512",
@@ -1484,6 +1531,321 @@ def large_tiles(params, cams, test_cams, cfg_base, data, tmp, seed, faults,
     return {"launches": launches}
 
 
+def dataset_phase(tmp, faults):
+    """Phase 12: the flagship's dataset regenerated by the port's
+    ``ref_scale_validation.write_dataset`` (120 views at 1237×822, 150,000
+    GT points, 54,000 init points, seed 0, the specular style, the TPU
+    run's operator: stream, exact, 32×16 tiles): each of the 15 test views
+    within 45 dB of the retained ground truth, every pose equal to
+    ``cameras.json``'s."""
+    import torch
+
+    from mvs_gaussian_splatting_tpu_torch.ref_scale_validation import (
+        orbit_cameras, write_dataset)
+    from mvs_gaussian_splatting_tpu_torch.utils.graphics import fov2focal
+    out = os.path.join(tmp, "flagship")
+    size = {k: FLAGSHIP[k] for k in ("width", "height", "n_views", "n_gt",
+                                     "n_init", "seed", "style")}
+    reset_launches()
+    torch.cuda.synchronize()
+    timing = write_dataset(out, **size, log=lambda s: None)
+    launches = read_launches()
+    views = []
+    for k, i in enumerate(range(0, FLAGSHIP["n_views"], LLFFHOLD)):
+        got = load_png(os.path.join(out, "images", f"view_{i:04d}.png"))
+        p, mse = psnr(got, load_png(os.path.join(VIEWS, "gt",
+                                                 f"{k:05d}.png")))
+        views.append({"view": f"view_{i:04d}", "psnr_vs_kept_gt": p,
+                      "mse": mse})
+    # the poses: cameras.json holds each view's camera-to-world pose
+    orbit = orbit_cameras(FLAGSHIP["n_views"], FLAGSHIP["width"],
+                          FLAGSHIP["height"], 65.0, FLAGSHIP["seed"] + 1)
+    with open(os.path.join(MODEL, "cameras.json")) as f:
+        entries = json.load(f)
+    pose_gap = 0.0
+    for e in entries:
+        R, t, fovx, fovy = orbit[int(e["img_name"][len("view_"):])]
+        pose_gap = max(pose_gap,
+                       float(np.abs(np.asarray(e["rotation"]) - R.T).max()),
+                       float(np.abs(np.asarray(e["position"])
+                                    + R.T @ t).max()),
+                       abs(e["fx"] - fov2focal(fovx, e["width"])) / e["fx"],
+                       abs(e["fy"] - fov2focal(fovy, e["height"])) / e["fy"])
+    emit({"phase": "dataset", "size": size, "test_views": views,
+          "min_psnr": min(v["psnr_vs_kept_gt"] or float("inf")
+                          for v in views),
+          "poses": len(entries), "pose_max_gap": pose_gap,
+          "seconds": timing["seconds"],
+          "render_seconds": timing["render_seconds"], "launches": launches})
+    for v in views:
+        if v["psnr_vs_kept_gt"] is not None and v["psnr_vs_kept_gt"] < 45.0:
+            faults.append(f"dataset: {v['view']} at {v['psnr_vs_kept_gt']} "
+                          "dB against the kept ground truth")
+    if len(entries) != FLAGSHIP["n_views"] or pose_gap > POSE_TOL:
+        faults.append(f"dataset: {len(entries)} poses, max gap {pose_gap}")
+    if launches["stream_fwd"] != FLAGSHIP["n_views"]:
+        faults.append(f"dataset: launches {launches}")
+    return {"dataset": out, "launches": launches}
+
+
+def grow_checkpoints(tmp):
+    """The retained model at iteration GROW_ITER, capacity GROW_CAPACITY,
+    zero Adam moments, SH 3: a vanilla checkpoint and one with uniform
+    direction logits (grow_dir)."""
+    import torch
+
+    from mvs_gaussian_splatting_tpu_torch.models.gaussians import (
+        _empty_aux, pad_capacity, params_from_numpy)
+    from mvs_gaussian_splatting_tpu_torch.models.ply import load_gaussian_ply
+    from mvs_gaussian_splatting_tpu_torch.train.checkpoint import \
+        save_checkpoint
+    from mvs_gaussian_splatting_tpu_torch.train.optim import adam_init
+    dev = torch.device("cuda")
+    model = load_gaussian_ply(os.path.join(MODEL, "point_cloud_final.ply.gz"))
+    n = model["xyz"].shape[0]
+    paths = {}
+    for name in ("vanilla", "grow"):
+        if name == "grow":
+            model["dirs_prob"] = np.full((n, 128), 1.0 / 128, np.float32)
+        aux = _empty_aux(n, dev)
+        aux.alive[:] = True
+        params, aux = pad_capacity(params_from_numpy(model, dev), aux,
+                                   GROW_CAPACITY)
+        paths[name] = os.path.join(tmp, f"start_{name}",
+                                   f"chkpnt{GROW_ITER}.npz")
+        save_checkpoint(paths[name], params, adam_init(params), aux,
+                        GROW_ITER, 3)
+        del params, aux
+    return paths, n
+
+
+def grow_arm(tmp, dataset, ckpt, seed, name, flags, steps, profile):
+    """One resume of ``ckpt`` on the flagship dataset through ``cli/train.py
+    main`` for ``steps`` steps, with the loop's grow rounds and the
+    speculative step's render sets recorded: (params, aux, history,
+    launches counted from zero, seconds, peak memory, rounds, render
+    sets)."""
+    import torch
+
+    from mvs_gaussian_splatting_tpu_torch.cli.train import main as train_main
+    from mvs_gaussian_splatting_tpu_torch.models.densify import \
+        densification_grads
+    from mvs_gaussian_splatting_tpu_torch.train import grow_step, loop
+    rounds, render_sets = [], []
+    real_round = loop.densify_and_prune_grow
+    real_make = loop.make_spec_train_step
+    real_pre = grow_step.preprocess
+
+    def round_(params, mu, nu, aux, *args, **kwargs):
+        thr = args[2].grad_threshold
+        uniform = 1.0 / 128
+        sel = aux.alive & (densification_grads(aux) >= thr)
+        moved = aux.alive & (params.dirs_prob != uniform).any(1)
+        out = real_round(params, mu, nu, aux, *args, **kwargs)
+        rounds.append(dict(
+            out[4], selected=int(sel.sum()),
+            selected_reset=bool((out[0].dirs_prob[sel] == uniform).all()),
+            moved_before=int(moved.sum()),
+            moved_not_selected=int((moved & ~sel).sum())))
+        return out
+
+    def make(*args, **kwargs):
+        step = real_make(*args, **kwargs)
+
+        def counted(params, *a, **kw):
+            render_sets.append([kw.get("render_n") or params.xyz.shape[0],
+                                None])
+            return step(params, *a, **kw)
+        return counted
+
+    def pre(xyz, *a, **kw):
+        render_sets[-1][1] = int(xyz.shape[0])
+        return real_pre(xyz, *a, **kw)
+
+    loop.densify_and_prune_grow = round_
+    loop.make_spec_train_step = make
+    grow_step.preprocess = pre
+    prof = (["--profile_dir", os.path.join(tmp, f"profile_{name}")]
+            if profile else [])
+    # the traced arms evaluate the held-out views in the loop (after the
+    # exact arm's length, at the first round and at the end); the exact arm
+    # is evaluated after its run
+    evals = (["--test_iterations",
+              *(str(GROW_ITER + k) for k in (GROW_EXACT_STEPS, 100, steps))]
+             if profile else ["--test_iterations", "0"])
+    try:
+        t0 = time.time()
+        torch.cuda.reset_peak_memory_stats()
+        reset_launches()
+        params, aux, _, hist = train_main(
+            ["-s", dataset, "-m", os.path.join(tmp, name),
+             "--start_checkpoint", ckpt,
+             "--iterations", str(GROW_ITER + steps), *evals,
+             "--log_every", "1", "--seed", str(seed), *prof, *TRAIN_FLAGS,
+             *flags])
+        torch.cuda.synchronize()
+        launches = read_launches()
+    finally:
+        loop.densify_and_prune_grow = real_round
+        loop.make_spec_train_step = real_make
+        grow_step.preprocess = real_pre
+    return (params, aux, hist, launches, time.time() - t0,
+            torch.cuda.max_memory_allocated(), rounds, render_sets)
+
+
+def grow_resume(tmp, data, seed, faults):
+    """Phase 13: grow mode at the flagship's width on its regenerated
+    dataset (105 train views, 15 held out): the retained model resumed at
+    iteration GROW_ITER, inside the speculation window with three grow
+    rounds before densify_until_iter, GROW_STEPS steps in the default
+    fast-math mode with ``--grow_dir`` and without (traced at their
+    iterations 100-120), then GROW_EXACT_STEPS exact grow steps, so that B2
+    takes the augmented set."""
+    import torch
+
+    from mvs_gaussian_splatting_tpu_torch.data.scene import Scene
+    from mvs_gaussian_splatting_tpu_torch.train.checkpoint import \
+        load_checkpoint
+    from mvs_gaussian_splatting_tpu_torch.train.config import (
+        ModelConfig, PipelineConfig)
+    from mvs_gaussian_splatting_tpu_torch.train.loop import (
+        PROFILE_WINDOW, eval_config, raster_config_from_pipe)
+    t_phase = time.time()
+    ckpts, n = grow_checkpoints(tmp)
+    pipe = PipelineConfig(tile_w=32, tile_h=16, max_tiles_per_gaussian=512,
+                          tier_budgets=(4, 12, 64),
+                          tier_fracs=(0.25, 0.1, 0.01))
+    eval_cfg = eval_config(raster_config_from_pipe(pipe))
+    dev = torch.device("cuda")
+    scene = Scene(ModelConfig(source_path=data["dataset"], eval=True,
+                              resolution=1), shuffle=False)
+    test = scene.get_test_cameras()
+    p0, _, aux0, _, _ = load_checkpoint(ckpts["vanilla"], dev)
+    before = evaluate(p0, aux0, test, eval_cfg)
+    del p0, aux0
+    grow_flags = ["--grow_dir", "--spec_capacity", str(GROW_SPEC),
+                  "--growdirs_lr", "0.01"]
+    arms = {"grow": (ckpts["grow"], grow_flags, GROW_STEPS, True),
+            "vanilla": (ckpts["vanilla"], [], GROW_STEPS, True),
+            "grow_exact": (ckpts["grow"], grow_flags + ["--no-fast_math"],
+                           GROW_EXACT_STEPS, False)}
+    recs = {}
+    for name, (ckpt, flags, steps, traced) in arms.items():
+        (params, aux, hist, launches, seconds, peak, rounds,
+         render_sets) = grow_arm(tmp, data["dataset"], ckpt, seed,
+                                 f"grow_resume_{name}", flags, steps, traced)
+        losses = [v for _, v in hist["loss"]]
+        # the returned state: after the last grow round when one runs
+        committed = evaluate(params, aux, test, eval_cfg)[1]
+        if traced:
+            loop_psnr = {int(k): v for k, v in hist["psnr_test"].items()}
+            after = loop_psnr[GROW_ITER + steps]
+            trace = trace_summary(os.path.join(
+                tmp, f"profile_grow_resume_{name}", "trace.json"))
+            timed = [1e3 / r for i, r in hist["iter_time"]
+                     if i > GROW_ITER + PROFILE_WINDOW[1]]
+        else:
+            after = committed
+            loop_psnr = {GROW_ITER + steps: committed}
+            trace = None
+            timed = [1e3 / r for _, r in hist["iter_time"]]
+        moved_now = (int((aux.alive & (params.dirs_prob != 1.0 / 128)
+                          .any(1)).sum())
+                     if params.dirs_prob is not None else None)
+        rec = {"phase": f"grow_resume_{name}", "steps": steps,
+               "flags": flags, "start_alive": n,
+               "capacity": int(params.xyz.shape[0]),
+               "alive_final": int(aux.alive.sum()),
+               "densify": hist.get("densify", []), "grow_rounds": rounds,
+               "render_sets": sorted({tuple(r) for r in render_sets}),
+               "spec_steps": len(render_sets),
+               "psnr_test_before": before[1], "psnr_test_after": after,
+               "psnr_test_loop": loop_psnr,
+               "psnr_test_committed": committed,
+               "loss_first": losses[0], "loss_last": losses[-1],
+               "nonfinite_grad_rows": sum(v for _, v in
+                                          hist["nonfinite_grad_rows"]),
+               "launches": launches,
+               "step_ms_median": float(np.median(timed)),
+               "step_ms_quartiles": [float(np.percentile(timed, 25)),
+                                     float(np.percentile(timed, 75))],
+               "timed_steps": len(timed),
+               "alive_moved_off_uniform_final": moved_now,
+               "profile_iterations_100_120": trace,
+               "seconds": round(seconds, 1), "peak_memory_bytes": peak}
+        emit(rec)
+        recs[name] = rec
+        del params, aux
+        # per arm: finite, no scrubbed rows, one forward and one backward of
+        # the arm's mode per step and none of the other mode's
+        if not all(np.isfinite(losses)) or len(losses) != steps:
+            faults.append(f"{rec['phase']}: losses {losses[:3]}...")
+        if rec["nonfinite_grad_rows"]:
+            faults.append(f"{rec['phase']}: {rec['nonfinite_grad_rows']} "
+                          "non-finite gradient rows")
+        if "--no-fast_math" in flags:
+            want = {"stream_fwd": steps, "stream_bwd": steps,
+                    "stream_fwd_fast": 0, "stream_bwd_fast": 0}
+        else:
+            want = {"stream_fwd_fast": steps, "stream_bwd_fast": steps,
+                    "stream_bwd": 0}
+        want.update(padded_fwd=0, padded_bwd=0)
+        if any(launches[k] != v for k, v in want.items()):
+            faults.append(f"{rec['phase']}: launches {launches}, want {want}")
+        if "--grow_dir" in flags:
+            n_rounds = (GROW_STEPS // 100) if steps == GROW_STEPS else 0
+            if (len(render_sets) != steps
+                    or any(rows != r + 2 * GROW_SPEC
+                           for r, rows in render_sets)):
+                faults.append(f"{rec['phase']}: render sets "
+                              f"{rec['render_sets']} over "
+                              f"{len(render_sets)} steps")
+            if len(rounds) != n_rounds or not all(
+                    r["n_cloned"] > 0 and r["selected_reset"]
+                    for r in rounds):
+                faults.append(f"{rec['phase']}: grow rounds {rounds}")
+            if rounds and not sum(r["moved_not_selected"] for r in rounds):
+                faults.append(f"{rec['phase']}: no unselected row's "
+                              "direction logits moved off uniform")
+    # The held-out PSNR over the run. The vanilla arm: at most 0.1 dB down
+    # (PR 4's criterion). The grow arm starts speculating on a model trained
+    # without speculative rows, and its held-out PSNR (live rows only) dips
+    # while the model adapts to them, then recovers; both packages do so
+    # (PERF.md section 6, PR 9). It is held to recover (its PSNR at the end
+    # above its PSNR at the first round) and to agree with the exact arm at
+    # the exact arm's length (fast and exact grow steps, within 0.1 dB); its
+    # drop, its gap to the vanilla arm and its committed state's PSNR are
+    # reported.
+    drops = {k: r["psnr_test_before"] - r["psnr_test_after"]
+             for k, r in recs.items()}
+    if drops["vanilla"] > GROW_PSNR_DROP:
+        faults.append(f"grow_resume_vanilla: test PSNR fell "
+                      f"{drops['vanilla']} dB")
+    grow_loop = recs["grow"]["psnr_test_loop"]
+    if not grow_loop[GROW_ITER + GROW_STEPS] > grow_loop[GROW_ITER + 100]:
+        faults.append(f"grow_resume_grow: test PSNR did not recover from "
+                      f"the first round {grow_loop}")
+    exact_gap = (recs["grow_exact"]["psnr_test_after"]
+                 - grow_loop[GROW_ITER + GROW_EXACT_STEPS])
+    if abs(exact_gap) > ARM_PSNR:
+        faults.append(f"grow_resume: exact vs fast grow arm at "
+                      f"{GROW_ITER + GROW_EXACT_STEPS}: {exact_gap} dB")
+    emit({"phase": "grow_resume", "psnr_test_drop": drops,
+          "grow_minus_vanilla_final": recs["grow"]["psnr_test_after"]
+          - recs["vanilla"]["psnr_test_after"],
+          "grow_exact_minus_fast": exact_gap,
+          "psnr_test_committed": {k: r["psnr_test_committed"]
+                                  for k, r in recs.items()},
+          "step_ms_median": {k: r["step_ms_median"] for k, r in recs.items()},
+          "step_device_ms": {k: (r["profile_iterations_100_120"] or {}).get(
+              "train_step_device_ms") for k, r in recs.items()},
+          "alive_final": {k: r["alive_final"] for k, r in recs.items()},
+          "peak_memory_bytes": {k: r["peak_memory_bytes"]
+                                for k, r in recs.items()},
+          "seconds": round(time.time() - t_phase, 1)})
+    return {k: r["launches"] for k, r in recs.items()}
+
+
 def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--seed", type=int, default=0,
@@ -1797,6 +2159,8 @@ def main(argv=None):
         cli = padded_cli(tmp, data, faults)
         large = large_tiles(params, cams, test_cams, cfg_base, data, tmp,
                             args.seed, faults, lib)
+        flagship = dataset_phase(tmp, faults)
+        grow = grow_resume(tmp, flagship, args.seed, faults)
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
     # 10. sections: the split, the SASS loop and the issue-rate floor
@@ -1854,7 +2218,9 @@ def main(argv=None):
              "train_resume_fast": resume["launches"]["fast"],
              "train_resume_exact": resume["launches"]["exact"],
              "train_init": init["launches"], "padded": padded["launches"],
-             "padded_cli": cli["launches"], "large_tiles": large["launches"]}
+             "padded_cli": cli["launches"], "large_tiles": large["launches"],
+             "dataset": flagship["launches"],
+             **{f"grow_resume_{k}": v for k, v in grow.items()}}
     totals = {k: sum(p[k] for p in paths.values()) for k in KERNELS}
     emit({"phase": "main_path_launches", "paths": paths, "totals": totals,
           "seconds_total": round(time.time() - t_start, 1)})

@@ -21,8 +21,11 @@
 //     both modes;
 //   transmittance and colour sums: exact mode as written; fast mode T -
 //     alpha T and the sums as one __fmaf_rn each. The 1e-4 threshold on T
-//     ends a pixel where an entry weighs at most ~1e-4, so its flips stay
-//     far inside the contract.
+//     ends a pixel, and the entry left out there weighs up to
+//     alpha 1e-4 / (1 - alpha), 1e-2 at alpha = 0.99: a flip of it is far
+//     outside the contract, so the fast plain version
+//     (ops/stream.py:_fast_replay) takes T with this rounding too, and the
+//     two end every pixel on the same entry.
 //
 // Semantics (both modes): power = -0.5 (a dx^2 + c dy^2) - b dx dy,
 // alpha = min(0.99, op exp(power)); the entry contributes iff power <= 0

@@ -9,8 +9,11 @@ loop grows capacity geometrically. :func:`params_from_numpy` and
 or ``np.asarray`` of each field of the JAX package's ``GaussianParams`` /
 ``GaussianAux``.
 
-Only the vanilla model is ported: the grow-mode extras (``dirs_prob`` and
-the rest, ROADMAP A12) stay None.
+Grow mode's research extras (``dirs_prob``, ``conti_dirs``, ``grow_dist``,
+``split_distance``, ``split_scale``) are leaves like the others when their
+feature is on and None otherwise; their activations are
+:func:`get_grow_dist`, :func:`get_split_distance` and
+:func:`get_split_scale`.
 """
 
 from __future__ import annotations
@@ -74,6 +77,27 @@ def get_features(params: GaussianParams) -> torch.Tensor:
     return torch.cat([params.f_dc, params.f_rest], dim=1)
 
 
+def get_grow_dist(params: GaussianParams) -> torch.Tensor:
+    return 2.0 * torch.sigmoid(params.grow_dist)
+
+
+def get_split_distance(params: GaussianParams) -> torch.Tensor:
+    return 2.2 * torch.sigmoid(params.split_distance)
+
+
+def get_split_scale(params: GaussianParams) -> torch.Tensor:
+    return 0.6 * torch.sigmoid(params.split_scale) + 0.5
+
+
+def extras_of(params: GaussianParams) -> dict:
+    """The research-feature flags a GaussianParams carries leaves for."""
+    return {"grow_dir": params.dirs_prob is not None,
+            "continous_dir": params.conti_dirs is not None,
+            "grow_distance": params.grow_dist is not None,
+            "learn_split_distance": params.split_distance is not None,
+            "learn_split_scale": params.split_scale is not None}
+
+
 def aux_from_numpy(d: Mapping[str, np.ndarray], device="cuda") -> GaussianAux:
     """GaussianAux on ``device`` from numpy arrays keyed by field name."""
     return GaussianAux(
@@ -93,19 +117,36 @@ def num_alive(aux: GaussianAux) -> torch.Tensor:
     return aux.alive.sum()
 
 
-def _dead_fill(capacity: int, sh_rest: int, device) -> GaussianParams:
+def _dead_fill(capacity: int, sh_rest: int, device, num_dirs: int = 128,
+               extras: Optional[dict] = None) -> GaussianParams:
     """Safe parameter values for dead slots (never rendered, but keep all
-    math finite: tiny scale, identity quat, ~0 opacity)."""
+    math finite: tiny scale, identity quat, ~0 opacity); the extras whose
+    flag is set in ``extras`` start uniform (dirs_prob), along +x
+    (conti_dirs) or at logit 0."""
+    extras = extras or {}
     f32 = dict(dtype=torch.float32, device=device)
     rotation = torch.zeros((capacity, 4), **f32)
     rotation[:, 0] = 1.0
+    conti = None
+    if extras.get("continous_dir"):
+        conti = torch.zeros((capacity, 3), **f32)
+        conti[:, 0] = 1.0
     return GaussianParams(
         xyz=torch.zeros((capacity, 3), **f32),
         f_dc=torch.zeros((capacity, 1, 3), **f32),
         f_rest=torch.zeros((capacity, sh_rest, 3), **f32),
         scaling=torch.full((capacity, 3), -10.0, **f32),
         rotation=rotation,
-        opacity=torch.full((capacity, 1), -10.0, **f32))
+        opacity=torch.full((capacity, 1), -10.0, **f32),
+        dirs_prob=(torch.full((capacity, num_dirs), 1.0 / num_dirs, **f32)
+                   if extras.get("grow_dir") else None),
+        conti_dirs=conti,
+        grow_dist=(torch.zeros((capacity, 1), **f32)
+                   if extras.get("grow_distance") else None),
+        split_distance=(torch.zeros((capacity, 3), **f32)
+                        if extras.get("learn_split_distance") else None),
+        split_scale=(torch.zeros((capacity, 1), **f32)
+                     if extras.get("learn_split_scale") else None))
 
 
 def _empty_aux(capacity: int, device) -> GaussianAux:
@@ -118,14 +159,19 @@ def _empty_aux(capacity: int, device) -> GaussianAux:
 
 def init_from_pcd(points: np.ndarray, colors: np.ndarray, capacity: int,
                   sh_degree: int = 3, *, extras: Optional[dict] = None,
-                  device="cuda"):
+                  num_dirs: int = 128, device="cuda",
+                  generator: Optional[torch.Generator] = None,
+                  conti_dirs=None):
     """Build (params, aux) from a point cloud: points/colors [N, 3] numpy,
     capacity >= N; slots N..C start dead. RGB → SH dc, zero rest,
     log(sqrt(3-NN mean squared distance)) scales, identity quats, opacity
-    logit(0.1)."""
-    if extras and any(extras.values()):
-        raise NotImplementedError("grow-mode extras are not ported "
-                                  "(ROADMAP A12)")
+    logit(0.1).
+
+    ``extras``: the research-feature flags (grow_dir, continous_dir,
+    grow_distance, learn_split_distance, learn_split_scale). The continuous
+    directions of the N points are normalized N(0, 1) draws [N, 3], given
+    as ``conti_dirs`` (the tests feed both packages one draw) or drawn from
+    ``generator``."""
     n = points.shape[0]
     if capacity < n:
         raise ValueError(f"capacity {capacity} < initial points {n}")
@@ -134,7 +180,7 @@ def init_from_pcd(points: np.ndarray, colors: np.ndarray, capacity: int,
     dist2 = torch.clamp(mean_sq_dist_to_knn(pts), min=1e-7)
     scales = torch.log(torch.sqrt(dist2))[:, None].repeat(1, 3)
 
-    params = _dead_fill(capacity, sh_rest, device)
+    params = _dead_fill(capacity, sh_rest, device, num_dirs, extras)
     params.xyz[:n] = pts
     params.f_dc[:n, 0] = torch.tensor(
         np.asarray(rgb2sh(np.asarray(colors, np.float32)), np.float32),
@@ -142,6 +188,13 @@ def init_from_pcd(points: np.ndarray, colors: np.ndarray, capacity: int,
     params.scaling[:n] = scales
     params.opacity[:n] = inverse_sigmoid(
         0.1 * torch.ones((n, 1), dtype=torch.float32, device=device))
+    if params.conti_dirs is not None:
+        if conti_dirs is None:
+            draw = torch.randn((n, 3), generator=generator, device=device)
+        else:
+            draw = torch.as_tensor(np.asarray(conti_dirs, np.float32),
+                                   device=device)
+        params.conti_dirs[:n] = normalize(draw)
     aux = _empty_aux(capacity, device)
     aux.alive[:n] = True
     return params, aux
@@ -154,15 +207,17 @@ def pad_capacity(params: GaussianParams, aux: GaussianAux,
     if new_capacity < old:
         raise ValueError("capacity can only grow")
     dev = params.xyz.device
-    fill = _dead_fill(new_capacity, params.f_rest.shape[1], dev)
+    num_dirs = (params.dirs_prob.shape[1] if params.dirs_prob is not None
+                else 128)
+    fill = _dead_fill(new_capacity, params.f_rest.shape[1], dev, num_dirs,
+                      extras_of(params))
     for f, p in zip(fill, params):
         if p is not None:
             f[:old] = p
     new_aux = _empty_aux(new_capacity, dev)
     for f, a in zip(new_aux, aux):
         f[:old] = a
-    return GaussianParams(*[f if p is not None else None
-                            for f, p in zip(fill, params)]), new_aux
+    return fill, new_aux
 
 
 def compact(params: GaussianParams, aux: GaussianAux) -> dict:

@@ -23,9 +23,12 @@ CPU tensors. Two modes, as in the JAX package:
 - fast math (``fast=True``, B3, ``RasterConfig.fast_math``): plain
   versions :func:`composite_stream_fast_plain` /
   :func:`composite_stream_bwd_fast_plain`, which follow the JAX package's
-  fast formulas (log-space transmittance, the moment-form pixel sums) in
-  f32. The fast kernels are held to them within the JAX package's
-  fast-mode contract (``tests/test_fast_math.py``), not to the bit.
+  fast formulas (the moment-form pixel sums) in f32 with the kernels'
+  transmittance, T − αT in one rounding (the JAX package takes the same
+  product in log space), so that they and the kernels include and end on
+  the same entries. The fast kernels are held to them within the JAX
+  package's fast-mode contract (``tests/test_fast_math.py``), not to the
+  bit.
 """
 
 from __future__ import annotations
@@ -405,15 +408,27 @@ def _tile_origin(tile_ids, tiles_x: int, tile_w: int, tile_h: int):
     return (ox.to(torch.float32)[:, None], oy.to(torch.float32)[:, None])
 
 
+def _fma32(a, b, c):
+    """a b + c in float32 with one rounding, as the kernels' ``__fmaf_rn``:
+    the product of two float32 values is exact in float64, so the float64
+    sum rounded to float32 is the fused result (but where the float64 sum
+    lands on a float32 tie, once in about 2^29)."""
+    return (a.double() * b.double() + c.double()).float()
+
+
 def _fast_replay(attrs, seg_start, counts, tile_ids, tiles_x: int,
                  tile_w: int, tile_h: int):
     """Yields, entry by entry, the fast mode's per-(tile, pixel) terms of
-    the JAX package's fast forward (``_chunk_include_lanes(fast=True)``):
-    the transmittance as exp of the running sum of log(1 − α) over the
-    contributing entries, ``include = contrib ∧ T_incl ≥ 1e-4`` (T_incl never
-    rises, so no done flag), ``T_excl = T_incl / (1 − α)``. Each item is
-    (k, col, in_seg, a [9, T, 1], dx, dy, g, alpha, include, t_incl, t_excl,
-    live) with ``live`` the pixels still above 1e-4 before entry k."""
+    B3f and B3b: the transmittance as the running product over the
+    contributing entries, each factor taken as T − αT in one rounding (the
+    kernels' ``transmit<true>``, ``csrc/stream_common.cuh``), so that every
+    include and termination decision is the kernels' own;
+    ``include = contrib ∧ T_incl ≥ 1e-4`` (T_incl never rises, so no done
+    flag). The JAX package's fast mode takes the same product in log space
+    (``_chunk_include_lanes(fast=True)``); the two differ by rounding only.
+    Each item is (k, col, in_seg, a [9, T, 1], dx, dy, g, alpha, include,
+    t_incl, t_excl, live) with ``live`` the pixels still above 1e-4 before
+    entry k."""
     dev = attrs.device
     f32 = torch.float32
     px, py = _pixel_grid(tile_ids, tiles_x, tile_w, tile_h)
@@ -421,12 +436,11 @@ def _fast_replay(attrs, seg_start, counts, tile_ids, tiles_x: int,
     width = attrs.shape[1]
     start = seg_start.long()
     cnt = torch.minimum(counts.long(), (width - start).clamp(min=0))
-    log_t = torch.zeros(px.shape, dtype=f32, device=dev)
-    log_min = float(np.log(np.float32(1e-4)))
+    trans = torch.ones(px.shape, dtype=f32, device=dev)
     steps = int(cnt.max()) if cnt.numel() else 0
     for k in range(steps):
         in_seg = k < cnt                                        # [T]
-        live = in_seg[:, None] & (log_t >= log_min)
+        live = in_seg[:, None] & (trans >= 1e-4)
         if k % 32 == 0 and not bool(live.any()):
             break
         col = (start + k).clamp(max=width - 1)
@@ -438,12 +452,11 @@ def _fast_replay(attrs, seg_start, counts, tile_ids, tiles_x: int,
         alpha = torch.minimum(a[5] * g, max_alpha)
         contrib = (in_seg[:, None] & (power <= 0.0)
                    & (alpha >= 1.0 / 255.0))
-        one_minus = torch.where(contrib, 1.0 - alpha, 1.0)
-        log_t = log_t + torch.log(one_minus)
-        t_incl = torch.exp(log_t)
+        t_incl = _fma32(-alpha, trans, trans)
         include = contrib & (t_incl >= 1e-4)
-        yield (k, col, in_seg, a, dx, dy, g, alpha, include, t_incl,
-               t_incl / one_minus, live)
+        yield (k, col, in_seg, a, dx, dy, g, alpha, include, t_incl, trans,
+               live)
+        trans = torch.where(contrib, t_incl, trans)
 
 
 def composite_stream_fast_plain(attrs, seg_start, counts, bg, tile_ids,
@@ -462,8 +475,10 @@ def composite_stream_fast_plain(attrs, seg_start, counts, bg, tile_ids,
     for (_, _, _, a, _, _, _, alpha, include, t_incl, t_excl,
          live) in _fast_replay(attrs, seg_start, counts, tile_ids, tiles_x,
                                tile_w, tile_h):
-        w = torch.where(include, alpha * t_excl, 0.0)
-        acc = acc + w[:, :, None] * a[6:9, :, 0].T[:, None, :]
+        w = alpha * t_excl
+        acc = torch.where(include[:, :, None],
+                          _fma32(w[:, :, None], a[6:9, :, 0].T[:, None, :],
+                                 acc), acc)
         tmin = torch.minimum(tmin, torch.where(include, t_incl, torch.inf))
         visits += live
     final_t = torch.clamp(tmin, max=1.0)

@@ -7,9 +7,12 @@ and instance-cap buckets, eval sweeps, the divergence guard, checkpoints.
 
 Training composites in the configuration's mode: fast math by default
 (B3), exact with ``fast_math=False``; every eval is exact
-(:func:`eval_config`). Not ported: the multi-device modes
+(:func:`eval_config`). Grow mode (``model_cfg.grow_dir`` /
+``continous_dir`` / ``grow_distance`` / ``learn_split_*``) trains through
+``train/grow_step.py``'s speculative step inside its window and densifies
+with ``densify_and_prune_grow``. Not ported: the multi-device modes
 (``data_parallel`` / ``tile_parallel`` / ``gauss_parallel`` and their grid,
-A17), grow mode (A12) and the network viewer (A14). Each raises.
+A17) and the network viewer (A14). Each raises.
 """
 
 from __future__ import annotations
@@ -25,14 +28,18 @@ import numpy as np
 import torch
 
 from ..data.scene import Scene
-from ..models.densify import DensifyConfig, densify_and_prune, reset_opacity
+from ..models.densify import (DensifyConfig, densify_and_prune,
+                              densify_and_prune_grow, reset_opacity)
 from ..models.gaussians import (GaussianParams, compact, compact_state,
                                 init_from_pcd, num_alive, pad_capacity)
+from ..models.grow import GrowConfig
 from ..ops.rasterize import RasterConfig, widen_eval_budgets
+from ..utils.sphere import sphere_points
 from ..utils.system import seed_everything
 from .checkpoint import load_checkpoint, save_checkpoint
 from .config import (ModelConfig, OptimizationConfig, PipelineConfig,
                      TrainRunConfig, save_cfg_args)
+from .grow_step import make_spec_train_step
 from .optim import AdamState, adam_init
 from .step import make_eval_metrics, make_eval_render, make_train_step
 
@@ -79,16 +86,11 @@ def adaptive_eval_layout(params, aux, cameras, eval_cfg: RasterConfig,
     return (d, tuple(budgets), tuple(fracs)), bound + (-bound) % 128
 
 
-def _refuse_unported(model_cfg: ModelConfig,
-                     run_cfg: TrainRunConfig) -> None:
+def _refuse_unported(run_cfg: TrainRunConfig) -> None:
     for flag in ("data_parallel", "tile_parallel", "gauss_parallel"):
         if getattr(run_cfg, flag):
             raise NotImplementedError(f"{flag} training is not ported "
                                       "(ROADMAP A17)")
-    if any(model_cfg.extras().values()):
-        raise NotImplementedError("grow-mode training (grow_dir, "
-                                  "continous_dir, grow_distance, learned "
-                                  "split) is not ported (ROADMAP A12)")
 
 
 def train(model_cfg: ModelConfig, opt_cfg: OptimizationConfig,
@@ -101,7 +103,7 @@ def train(model_cfg: ModelConfig, opt_cfg: OptimizationConfig,
     ``profile_dir``: write a torch.profiler trace of this run's iterations
     100-120 (counted from the checkpoint's iteration on a resume) there as
     ``trace.json``."""
-    _refuse_unported(model_cfg, run_cfg)
+    _refuse_unported(run_cfg)
     device = torch.device(device)
     seed_everything(run_cfg.seed)
     if scene is None:
@@ -126,9 +128,13 @@ def train(model_cfg: ModelConfig, opt_cfg: OptimizationConfig,
         n0 = len(scene.info.points)
         capacity = max(1024, int(n0 * opt_cfg.initial_capacity_factor))
         capacity = 1 << math.ceil(math.log2(capacity))
+        init_gen = torch.Generator(device=device)
+        init_gen.manual_seed(run_cfg.seed)
         params, aux = init_from_pcd(scene.info.points, scene.info.colors,
                                     capacity, sh_degree=model_cfg.sh_degree,
-                                    device=device)
+                                    extras=model_cfg.extras(),
+                                    num_dirs=model_cfg.num_dirs,
+                                    device=device, generator=init_gen)
         adam = adam_init(params)
         log_fn(f"Number of points at initialisation : {n0} "
                f"(capacity {capacity})")
@@ -147,6 +153,25 @@ def train(model_cfg: ModelConfig, opt_cfg: OptimizationConfig,
     use_vis = pipe_cfg.visible_compaction and stream_caps
     vis_cap = 0
     vis_max = 0
+
+    # grow mode: the speculative step and the grow densification round
+    grow_cfg = GrowConfig(**{k: getattr(model_cfg, k)
+                             for k in GrowConfig._fields})
+    has_grow = grow_cfg.grow_dir or grow_cfg.continous_dir
+    spec_step = None
+    spec_size = pipe_cfg.spec_capacity
+    sphere_dirs = None
+    if any(model_cfg.extras().values()):
+        if grow_cfg.grow_dir:
+            sphere_dirs = torch.as_tensor(
+                sphere_points(grow_cfg.num_dirs), dtype=torch.float32,
+                device=device)
+        spec_step = make_spec_train_step(
+            opt_cfg, raster_cfg, spatial_lr_scale, grow_cfg, sphere_dirs,
+            spec_size, float(scene.cameras_extent))
+    # the instance cap's bound counts the speculative rows too: the load it
+    # buckets may be a speculative step's
+    spec_rows = 2 * spec_size if spec_step is not None else 0
 
     densify_cfg = DensifyConfig(
         grad_threshold=opt_cfg.densify_grad_threshold,
@@ -187,11 +212,26 @@ def train(model_cfg: ModelConfig, opt_cfg: OptimizationConfig,
         bg_it = (torch.rand(3, generator=gen, device=device)
                  if opt_cfg.random_background else bg)
         do_stats = iteration < opt_cfg.densify_until_iter
-        params, adam, aux, metrics = train_step(
-            params, adam, aux, cam.view(device), cam.device_image(device),
-            bg_it, iteration, do_stats, width=cam.image.shape[2],
-            height=cam.image.shape[1], sh_degree=active_sh,
-            render_n=render_n, instance_cap=inst_cap, visible_cap=vis_cap)
+        # the speculative render's window: grow steps from one interval
+        # before densification starts until it stops, past the first
+        # opacity reset; learned split alone speculates on every step
+        spec_now = spec_step is not None and (
+            not has_grow
+            or (iteration > (opt_cfg.densify_from_iter
+                             - opt_cfg.densification_interval - 1)
+                and iteration < opt_cfg.densify_until_iter
+                and iteration > opt_cfg.opacity_reset_interval))
+        step_kw = dict(width=cam.image.shape[2], height=cam.image.shape[1],
+                       sh_degree=active_sh, render_n=render_n,
+                       instance_cap=inst_cap)
+        if spec_now:
+            params, adam, aux, metrics = spec_step(
+                params, adam, aux, cam.view(device), cam.device_image(device),
+                bg_it, iteration, do_stats, generator=gen, **step_kw)
+        else:
+            params, adam, aux, metrics = train_step(
+                params, adam, aux, cam.view(device), cam.device_image(device),
+                bg_it, iteration, do_stats, visible_cap=vis_cap, **step_kw)
 
         eval_now = (iteration in run_cfg.test_iterations
                     or (run_cfg.eval_every
@@ -218,9 +258,15 @@ def train(model_cfg: ModelConfig, opt_cfg: OptimizationConfig,
                                      mu=_pad_tree(adam.mu, new_cap),
                                      nu=_pad_tree(adam.nu, new_cap))
                 gate = iteration > opt_cfg.opacity_reset_interval
-                params, mu, nu, aux, info = densify_and_prune(
-                    params, adam.mu, adam.nu, aux, gen,
-                    scene.cameras_extent, densify_cfg, gate)
+                if has_grow and gate:
+                    params, mu, nu, aux, info = densify_and_prune_grow(
+                        params, adam.mu, adam.nu, aux, gen,
+                        scene.cameras_extent, densify_cfg, grow_cfg,
+                        sphere_dirs, gate)
+                else:
+                    params, mu, nu, aux, info = densify_and_prune(
+                        params, adam.mu, adam.nu, aux, gen,
+                        scene.cameras_extent, densify_cfg, gate)
                 if info["n_dropped"] > 0:
                     log_fn(f"[ITER {iteration}] WARNING: {info['n_dropped']} "
                            "densification slots dropped (capacity starved)")
@@ -243,9 +289,10 @@ def train(model_cfg: ModelConfig, opt_cfg: OptimizationConfig,
                            f"{render_n} → {new_rn}")
                     render_n = new_rn
                 if stream_caps:
-                    new_ic = _instance_bucket(int(metrics.instance_load),
-                                              render_n or params.xyz.shape[0],
-                                              raster_cfg)
+                    new_ic = _instance_bucket(
+                        int(metrics.instance_load),
+                        (render_n or params.xyz.shape[0]) + spec_rows,
+                        raster_cfg)
                     if new_ic != inst_cap:
                         log_fn(f"[ITER {iteration}] instance cap "
                                f"{inst_cap or 'auto'} → {new_ic or 'auto'}")
@@ -292,9 +339,10 @@ def train(model_cfg: ModelConfig, opt_cfg: OptimizationConfig,
                        "non-finite gradients (zeroed by scrub_grads)")
             if stream_caps and oc_now > 0:
                 # cap too tight: grow to the bucket covering the spilled load
-                grown = _instance_bucket(int(il_now + oc_now),
-                                         render_n or params.xyz.shape[0],
-                                         raster_cfg)
+                grown = _instance_bucket(
+                    int(il_now + oc_now),
+                    (render_n or params.xyz.shape[0]) + spec_rows,
+                    raster_cfg)
                 if grown != inst_cap:
                     inst_cap = grown
                     log_fn(f"[ITER {iteration}] instance cap overflow "

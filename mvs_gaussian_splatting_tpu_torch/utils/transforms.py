@@ -1,7 +1,6 @@
 """Quaternion / covariance / activation math on torch tensors.
 
-Port of the JAX package's ``utils/transforms.py`` (the subset the render
-path needs). Same formulas and evaluation order; geometry stays in float32
+Port of the JAX package's ``utils/transforms.py``. Same formulas and evaluation order; geometry stays in float32
 as explicit broadcast-multiply-sums (no matrix product, so no TF32 path).
 """
 
@@ -55,3 +54,41 @@ def normalize(v: torch.Tensor, dim: int = -1, eps: float = 1e-12) -> torch.Tenso
     """L2 normalize along ``dim`` with torch.nn.functional.normalize's eps clamp."""
     n = torch.linalg.vector_norm(v, dim=dim, keepdim=True)
     return v / torch.clamp(n, min=eps)
+
+
+def rotmat_to_quat(R: torch.Tensor) -> torch.Tensor:
+    """Rotation matrix [3, 3] → unit quaternion [4] (w, x, y, z).
+
+    Branch-free Shepperd-style construction: the largest of the four
+    candidate squared components picks the row (the first on a tie)."""
+    t = R[0, 0] + R[1, 1] + R[2, 2]
+    zero = torch.zeros((), dtype=R.dtype, device=R.device)
+    qw2 = torch.maximum(zero, 1 + t)
+    qx2 = torch.maximum(zero, 1 + R[0, 0] - R[1, 1] - R[2, 2])
+    qy2 = torch.maximum(zero, 1 - R[0, 0] + R[1, 1] - R[2, 2])
+    qz2 = torch.maximum(zero, 1 - R[0, 0] - R[1, 1] + R[2, 2])
+    cands = torch.stack([
+        torch.stack([qw2, R[2, 1] - R[1, 2], R[0, 2] - R[2, 0],
+                     R[1, 0] - R[0, 1]]),
+        torch.stack([R[2, 1] - R[1, 2], qx2, R[0, 1] + R[1, 0],
+                     R[2, 0] + R[0, 2]]),
+        torch.stack([R[0, 2] - R[2, 0], R[0, 1] + R[1, 0], qy2,
+                     R[1, 2] + R[2, 1]]),
+        torch.stack([R[1, 0] - R[0, 1], R[2, 0] + R[0, 2], R[1, 2] + R[2, 1],
+                     qz2]),
+    ])                                                   # [4 cand, 4 comp]
+    mags = torch.stack([qw2, qx2, qy2, qz2])
+    i = torch.argmax(mags)
+    return cands[i] / (2.0 * torch.sqrt(torch.clamp(mags[i], min=1e-12)))
+
+
+def quat_multiply(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """Hamilton product [..., 4] ⊗ [..., 4] (w, x, y, z), broadcasting."""
+    aw, ax, ay, az = (a[..., i] for i in range(4))
+    bw, bx, by, bz = (b[..., i] for i in range(4))
+    return torch.stack([
+        aw * bw - ax * bx - ay * by - az * bz,
+        aw * bx + ax * bw + ay * bz - az * by,
+        aw * by - ax * bz + ay * bw + az * bx,
+        aw * bz + ax * by - ay * bx + az * bw,
+    ], dim=-1)

@@ -1,0 +1,112 @@
+"""One grow-mode training step of the port held against the JAX
+package's (``train/grow_step.py:make_spec_train_step``), in exact and in
+fast-math mode.
+
+The same numpy state (every research extra of grow_dir, grow_distance and
+learned split distance and scale, a hot gradient statistic, an alive
+prefix) goes through both steps; the speculative render set is made
+without random draws. The JAX step takes its stream path through the
+Pallas kernels in interpret mode, jitted whole. Tolerances are stated where
+they are used.
+"""
+
+import functools
+import importlib
+import math
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+from test_torch_grow import (DIRS, configs, grow_state, jax_state, rel_gap,
+                             torch_state)
+
+from mvs_gaussian_splatting_tpu.ops.preprocess import CameraView as JCamera
+from mvs_gaussian_splatting_tpu.train.config import OptimizationConfig
+from mvs_gaussian_splatting_tpu.train.grow_step import \
+    make_spec_train_step as jmake_spec_train_step
+from mvs_gaussian_splatting_tpu.utils import graphics
+from mvs_gaussian_splatting_tpu_torch.ops.preprocess import CameraView
+from mvs_gaussian_splatting_tpu_torch.ops.rasterize import RasterConfig
+from mvs_gaussian_splatting_tpu_torch.train.grow_step import \
+    make_spec_train_step
+
+torch.set_num_threads(1)
+
+jrast = importlib.import_module("mvs_gaussian_splatting_tpu.ops.rasterize")
+
+W, H = 64, 48
+STEP_FLAGS = {"grow_dir": True, "grow_distance": True,
+              "learn_split_distance": True, "learn_split_scale": True}
+
+
+def _camera():
+    fovx = math.radians(60.0)
+    fovy = graphics.focal2fov(graphics.fov2focal(fovx, W), H)
+    P = graphics.projection_matrix(0.01, 100.0, fovx, fovy)
+    V = np.eye(4, dtype=np.float32)
+    V[:3, 3] = [0.05, -0.02, 0.1]
+    full = (P @ V).astype(np.float32)
+    c = np.linalg.inv(V)[:3, 3].astype(np.float32)
+    tan = (np.float32(math.tan(fovx / 2)), np.float32(math.tan(fovy / 2)))
+    return (JCamera(jnp.asarray(V), jnp.asarray(full), jnp.asarray(c), *tan),
+            CameraView(torch.tensor(V), torch.tensor(full), torch.tensor(c),
+                       *(torch.tensor(v) for v in tan)))
+
+
+# One step's gradients, read from the first moments (zero before the step,
+# so mu = 0.1·g up to one rounding). Exact mode: within 4e-6 of each leaf's
+# scale. The JAX package's exact-mode bound against its own oracle is
+# 4e-7, but the port's vanilla exact step sits at 0.9-2.3e-6 of scale
+# against the JAX step on this state (the plain backward sums over pixels
+# and instances in another order; measured), and the grow step at 0.9-2.1e-6
+# (measured), so both are held at twice the vanilla step's worst gap. Fast
+# mode: within 1e-3, the JAX package's fast-mode contract.
+@pytest.mark.parametrize("fast, grad_rel", [(False, 4e-6), (True, 1e-3)],
+                         ids=["exact", "fast"])
+def test_spec_step_matches_jax(fast, grad_rel, monkeypatch):
+    monkeypatch.setattr(jrast, "_rasterize_stream", functools.partial(
+        jrast._rasterize_stream, interpret=True))
+    p, mu, nu, aux = grow_state(150, 256, seed=10, flags=STEP_FLAGS,
+                                prefix=True, scene=True)
+    jcam, tcam = _camera()
+    gt = np.random.RandomState(11).rand(3, H, W).astype(np.float32)
+    bg = np.array([0.2, 0.3, 0.1], np.float32)
+    opt = OptimizationConfig(opacitysparse=0.1)
+    kw = dict(tile_w=32, tile_h=16, max_tiles_per_gaussian=64,
+              tier_budgets=(4, 12), tier_fracs=(0.25, 0.1), fast_math=fast)
+    spec, extent = 16, 1.5
+    jcfg, tcfg = configs(STEP_FLAGS)
+    jstep = jmake_spec_train_step(opt, jrast.RasterConfig(backend="stream",
+                                                          **kw),
+                                  4.2, jcfg, DIRS, spec, extent)
+    jp, jadam, jaux = jax_state(p, mu, nu, aux)
+    jnew, jst, jaux2, jm = jstep(jp, jadam, jaux, jcam, jnp.asarray(gt),
+                                 jnp.asarray(bg), jnp.int32(21),
+                                 jnp.asarray(True), jax.random.PRNGKey(0),
+                                 width=W, height=H, sh_degree=3,
+                                 render_n=192)
+    tstep = make_spec_train_step(opt, RasterConfig(**kw), 4.2, tcfg, DIRS,
+                                 spec, extent)
+    tp, tadam, taux = torch_state(p, mu, nu, aux)
+    tnew, tst, taux2, tm = tstep(tp, tadam, taux, tcam, torch.tensor(gt),
+                                 torch.tensor(bg), 21, True, width=W,
+                                 height=H, sh_degree=3, render_n=192)
+    # loss: the same image within 2e-4 per pixel, averaged (1e-5 abs)
+    assert abs(float(tm.loss) - float(jm.loss)) <= 1e-5
+    # the step's counters equal
+    for k in ("n_visible", "overflow_tiles", "overflow_capacity",
+              "instance_load", "nonfinite_grad_rows"):
+        assert int(getattr(tm, k)) == int(getattr(jm, k)), k
+    for k in p:
+        want = np.asarray(getattr(jst.mu, k))
+        got = getattr(tst.mu, k).numpy()
+        assert np.abs(want).max() > 0, k        # every leaf gets gradients
+        assert rel_gap(got, want) <= grad_rel, (k, rel_gap(got, want))
+    # the statistics of the original rows (the aux): the same
+    # visibility, radii and accumulated NDC gradient norms
+    for k, v in jaux2._asdict().items():
+        np.testing.assert_allclose(getattr(taux2, k).numpy(), np.asarray(v),
+                                   rtol=2e-5 if not fast else 2e-3,
+                                   atol=1e-9, err_msg=k)

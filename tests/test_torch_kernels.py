@@ -20,7 +20,8 @@ same rounding and differ only in the order of the sum over a tile's pixels.
 The fast-math kernels (B3f, B3b) are held to their plain versions within
 the JAX package's fast-mode contract (``tests/test_fast_math.py``): 2e-3
 max abs on image and final_T, 5e-3 of each row's largest magnitude on
-gradients; the plain versions take the log-space route of the TPU kernel,
+gradients; the plain versions take the kernels' transmittance rounding
+(so that both end a pixel on the same entry) and the moment form in f32,
 the kernels a per-pixel loop with TF32 tensor-core moment sums. The
 kernels walk 8×4-pixel warp blocks and skip entries whose cull box misses
 a block (``TestCompactBlocksAndCull``), which must change no output.
@@ -500,6 +501,74 @@ class TestFastKernels:
 # pixels), and a side over 64 (128 x 8: one part in the forwards, 4 in B3b)
 LARGE = {"large_64x32": (64, 32), "large_48x48": (48, 48),
          "large_40x40": (40, 40), "large_128x8": (128, 8)}
+
+
+REPO = pathlib.Path(__file__).resolve().parents[1]
+MODEL = REPO / "runs" / "specfinal" / "model"
+
+
+@pytest.mark.gpu
+def test_fast_forward_matches_plain_on_real_views(cuda):
+    """B3f against its plain version on every fourth of the flagship's 120
+    full views (1237×822), with ``runs/specfinal``'s retained model on the
+    training layout (32×16 tiles, 512 tiles per Gaussian, the instance cap
+    the loop picks for each view). The plain replay takes the kernels'
+    transmittance rounding, so the two include and end on the same entries
+    and agree within the exact mode's 2e-4: a flipped 1e-4 termination
+    alone moves a pixel by up to α·1e-4/(1 − α), 1e-2 at α = 0.99."""
+    import json
+
+    from mvs_gaussian_splatting_tpu_torch.cli.render import params_from_ply
+    from mvs_gaussian_splatting_tpu_torch.data.cameras import \
+        camera_from_json
+    from mvs_gaussian_splatting_tpu_torch.models.gaussians import (
+        activated, get_features)
+    from mvs_gaussian_splatting_tpu_torch.ops.preprocess import preprocess
+    from mvs_gaussian_splatting_tpu_torch.ops.rasterize import \
+        bin_and_pack_stream
+    from mvs_gaussian_splatting_tpu_torch.ops.render import render
+    from mvs_gaussian_splatting_tpu_torch.train.config import PipelineConfig
+    from mvs_gaussian_splatting_tpu_torch.train.loop import (
+        _instance_bucket, raster_config_from_pipe)
+    params = params_from_ply(str(MODEL / "point_cloud_final.ply.gz"), 3,
+                             device=cuda)
+    with open(MODEL / "cameras.json") as f:
+        cams = sorted((camera_from_json(e) for e in json.load(f)),
+                      key=lambda c: c.image_name)
+    base = raster_config_from_pipe(PipelineConfig(
+        tile_w=32, tile_h=16, max_tiles_per_gaussian=512,
+        tier_budgets=(4, 12, 64), tier_fracs=(0.25, 0.1, 0.01)))
+    bg = torch.zeros(3, device=cuda)
+    gaps = {}
+    with torch.no_grad():
+        s, r, o = activated(params)
+        for cam in cams[::4]:
+            view, w, h = cam.view(cuda), cam.width, cam.height
+            probe = render(view, w, h, params, bg, sh_degree=3,
+                           raster_config=base)
+            cfg = base._replace(instance_cap=_instance_bucket(
+                int(probe["instance_load"] + probe["overflow_capacity"]),
+                params.xyz.shape[0], base))
+            del probe
+            tiles_x = -(-w // cfg.tile_w)
+            t = tiles_x * -(-h // cfg.tile_h)
+            pre = preprocess(params.xyz, o, view, w, h, scales=s,
+                             rotations=r, shs=get_features(params),
+                             sh_degree=3, tile_w=cfg.tile_w,
+                             tile_h=cfg.tile_h)
+            bins, attrs = bin_and_pack_stream(pre, tiles_x, t // tiles_x,
+                                              cfg)
+            assert int(bins.overflow_capacity) == 0
+            a = (attrs, bins.seg_start, bins.counts, bg,
+                 torch.arange(t, dtype=torch.int32, device=cuda), tiles_x,
+                 cfg.tile_w, cfg.tile_h)
+            out, tfin = composite_stream(*a, fast=True)
+            ref, rtfin = stream.composite_stream_fast_plain(*a)
+            gaps[cam.image_name] = max(float((out - ref).abs().max()),
+                                       float((tfin - rtfin).abs().max()))
+    print("B3f vs plain per view: " + " ".join(
+        f"{k} {v:.2e}" for k, v in gaps.items()))
+    assert max(gaps.values()) <= TOL
 
 
 def edge_stream(case, seed=11):

@@ -282,8 +282,27 @@ class TestDensify:
             np.asarray(jdensify.densification_grads(ja)), rtol=1e-6)
 
     def test_grow_mode_refused(self):
-        with pytest.raises(NotImplementedError, match="A12"):
-            tdensify.densify_and_prune_grow()
+        """The grow round, once refused, now runs: every hot Gaussian is
+        grown into a free slot and its direction logits are reset to
+        uniform (tests/test_torch_grow.py holds it against the JAX
+        package)."""
+        from mvs_gaussian_splatting_tpu_torch.models.grow import GrowConfig
+        from mvs_gaussian_splatting_tpu_torch.utils.sphere import \
+            sphere_points
+        p, mu, nu, aux = random_state(30, 96, seed=13)
+        rng = np.random.RandomState(14)
+        for tree in (p, mu, nu):
+            tree["dirs_prob"] = rng.randn(96, 128).astype(np.float32)
+        tp, tadam, taux = torch_state(p, mu, nu, aux)
+        hot = taux.alive & (tdensify.densification_grads(taux) >= 2e-4)
+        out = tdensify.densify_and_prune_grow(
+            tp, tadam.mu, tadam.nu, taux, torch.Generator().manual_seed(0),
+            10.0, tdensify.DensifyConfig(), GrowConfig(grow_dir=True),
+            torch.tensor(sphere_points(128), dtype=torch.float32), True)
+        info = out[4]
+        assert info["n_cloned"] == int(hot.sum()) > 0
+        assert (out[0].dirs_prob[hot] == 1.0 / 128).all()
+        assert bool(torch.isfinite(out[0].xyz).all())
 
 
 W, H = 64, 48
