@@ -5,8 +5,10 @@ read_intrinsics_binary :215-241, read_points3D_binary :125-154 and the text
 fallbacks). Binary layouts follow the COLMAP on-disk format
 (src/base/reconstruction.cc): little-endian packed records. Points are parsed
 vectorized with numpy instead of per-record struct loops — MipNeRF-360 scenes
-have millions of track entries. :func:`write_pinhole_scene` writes a whole
-dataset the readers take back (synthetic scenes, the card's smoke test).
+have millions of track entries. The binary readers first try the C++
+parsers of ``native/`` (built with ``g++`` at first use) and fall back to
+the Python ones. :func:`write_pinhole_scene` writes a whole dataset the
+readers take back (synthetic scenes, the card's smoke test).
 """
 
 from __future__ import annotations
@@ -79,6 +81,9 @@ def rotmat2qvec(R: np.ndarray) -> np.ndarray:
 
 
 def read_cameras_binary(path: str) -> Dict[int, CameraIntrinsics]:
+    parsed = _native_cameras(path)
+    if parsed is not None:
+        return parsed
     out = {}
     with open(path, "rb") as f:
         (num,) = struct.unpack("<Q", f.read(8))
@@ -91,6 +96,9 @@ def read_cameras_binary(path: str) -> Dict[int, CameraIntrinsics]:
 
 
 def read_images_binary(path: str) -> Dict[int, ImageExtrinsics]:
+    parsed = _native_images(path)
+    if parsed is not None:
+        return parsed
     out = {}
     with open(path, "rb") as f:
         (num,) = struct.unpack("<Q", f.read(8))
@@ -111,6 +119,9 @@ def read_images_binary(path: str) -> Dict[int, ImageExtrinsics]:
 
 def read_points3d_binary(path: str):
     """Returns (xyz [N,3] f64, rgb [N,3] u8, error [N,1] f64)."""
+    parsed = _native_points(path)
+    if parsed is not None:
+        return parsed
     with open(path, "rb") as f:
         (num,) = struct.unpack("<Q", f.read(8))
         blob = f.read()
@@ -247,3 +258,41 @@ def write_pinhole_scene(path: str, cameras, images, xyz: np.ndarray,
     write_cameras_binary(intr, os.path.join(sparse, "cameras.bin"))
     write_images_binary(extr, os.path.join(sparse, "images.bin"))
     store_point_cloud_ply(os.path.join(sparse, "points3D.ply"), xyz, rgb)
+
+
+# ---- native fast path (native/, C++ via ctypes); None falls back to the
+# Python parsers above
+
+def _native_points(path: str):
+    try:
+        from .. import native
+        return native.read_points3d(path)
+    except Exception:
+        return None
+
+
+def _native_images(path: str):
+    try:
+        from .. import native
+        raw = native.read_images(path)
+        if raw is None:
+            return None
+        return {k: ImageExtrinsics(k, q, t, cid, name)
+                for k, (q, t, cid, name) in raw.items()}
+    except Exception:
+        return None
+
+
+def _native_cameras(path: str):
+    try:
+        from .. import native
+        raw = native.read_cameras(path)
+        if raw is None:
+            return None
+        out = {}
+        for k, (model_id, w, h, params) in raw.items():
+            name, n_params = CAMERA_MODELS[model_id]
+            out[k] = CameraIntrinsics(k, name, w, h, params[:n_params].copy())
+        return out
+    except Exception:
+        return None

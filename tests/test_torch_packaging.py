@@ -58,3 +58,42 @@ def test_build_dir_outside_an_installed_package(tmp_path, monkeypatch):
     got = kernels.build_dir(pkg)
     assert got == tmp_path / "home" / ".cache" / PACKAGE / "torch_kernels"
     assert site not in got.parents
+
+
+def test_native_source_is_packaged():
+    """The C++ COLMAP reader (``native/gsio.cpp``) is in the port's
+    package-data, so an installed package can build it."""
+    with open(ROOT / "pyproject.toml", "rb") as f:
+        patterns = tomllib.load(f)["tool"]["setuptools"]["package-data"][
+            PACKAGE]
+    sources = sorted((ROOT / PACKAGE / "native").glob("*.cpp"))
+    assert [p.name for p in sources] == ["gsio.cpp"]
+    for src in sources:
+        rel = src.relative_to(ROOT / PACKAGE).as_posix()
+        assert any(fnmatch(rel, pat) for pat in patterns), rel
+
+
+def test_native_builds_outside_an_installed_package(tmp_path, monkeypatch):
+    """An installed package (no ``pyproject.toml`` beside it) builds
+    ``libgsio.so`` into the user cache, never into ``site-packages``; a
+    checkout builds it under ``build/torch_kernels``."""
+    import shutil
+
+    from mvs_gaussian_splatting_tpu_torch import native
+
+    assert native.library_path() == (ROOT / "build" / "torch_kernels"
+                                     / "native" / "libgsio.so")
+    site = tmp_path / "site-packages"
+    src = site / PACKAGE / "native" / "gsio.cpp"
+    src.parent.mkdir(parents=True)
+    shutil.copy(native.SOURCE, src)
+    cache = tmp_path / "cache"
+    monkeypatch.setenv("XDG_CACHE_HOME", str(cache))
+    so = native.library_path(site / PACKAGE)
+    assert so == cache / PACKAGE / "torch_kernels" / "native" / "libgsio.so"
+    if shutil.which("g++") is None:
+        return
+    assert native.build(src, so)
+    assert so.is_file()
+    assert sorted(p.name for p in site.rglob("*")) == [
+        "gsio.cpp", PACKAGE, "native"]
