@@ -209,12 +209,32 @@ reader). Phases, one JSON line each:
    (``native/``) builds with ``g++``, and the readers of ``data/colmap.py``
    take it on phase 12's ``sparse/0/*.bin`` (one native parse each) and
    equal the Python parsers (every array, name and number);
+17. parallel modes (``parallel/``): (a) the tile partition: on 3 test
+   views at the flagship's 32×16 layout, ``tile_stream``'s per-rank body
+   for every rank r < D on the one card, D in (2, 4), strips and
+   round-robin, exact (B1/B2) and fast (B3f/B3b); the shards' tiles and
+   summed packed gradients against the unsharded call (bit-equal, else
+   within 1e-6 of scale) and each rank's kernel ms (max / mean); (b) at
+   world size 1 through ``torch.distributed`` (a NCCL group of one): the
+   ``--data_parallel 4`` first step's gradient against the mean of its
+   four single-camera steps (fast within 1e-3 of scale, exact within
+   1e-5), the ``--tile_parallel 1`` first step against
+   ``make_train_step`` (exact, 1e-5; and ``make_train_step`` against
+   itself: the gathers' scatter-add is atomic on the card), the
+   Gaussian-sharded render's ``overflow_quota``, then ``cli/train.py``
+   resumes: 120 fast steps of ``--data_parallel 4`` (traced at 100-120;
+   the step per camera beside phase 7's single-camera step), 20 each of
+   a single-camera resume (the control of the 20-step times),
+   ``--tile_parallel 1``, ``--data_parallel 2 --tile_parallel 1`` and
+   ``--gauss_parallel 1``, and
+   from phase 13's grow checkpoint 20 of ``--grow_dir --data_parallel
+   4``; every run's losses and gradients finite;
 
 then the ``kernels`` line (B1, B2, B3f, B3b, B4 and B5, with their launches
 on the main paths: the render slice of phase 4, the two arms of phase 7
 (not its control), phase 8, phase 9, phase 9b, phase 11's renders and
 training, phase 12's dataset, phase 13's three arms, phase 14's render CLI
-and full_eval and phase 15's render, each counted from zero)
+and full_eval, phase 15's render and phase 17, each counted from zero)
 and last ``{"ok": true, "device": {...}}``. A failed check raises after the
 measurements and exits non-zero without printing those two lines; without a
 card it exits non-zero before printing any result. It writes nothing into
@@ -225,6 +245,7 @@ temporary directory that is deleted.
 from __future__ import annotations
 
 import argparse
+import contextlib
 import json
 import os
 import re
@@ -233,6 +254,7 @@ import subprocess
 import sys
 import tempfile
 import time
+import warnings
 from concurrent.futures import ThreadPoolExecutor
 
 import numpy as np
@@ -330,12 +352,59 @@ TOY_SIDE = 256
 TOY_EPOCHS = 300
 TOY_INIT = 250
 TOY_CAPACITY = 1250
+# phase 17: the multi-device modes (parallel/) on one card. (a) the tile
+# partition: 3 test views at the flagship's 32x16 layout, D ranks' shards
+# composited one after another on the card, strips and round-robin, exact
+# and fast; their image and summed packed gradient held to the unsharded
+# call (each instance slot belongs to one tile: bit-equality expected,
+# else within PART_REL of scale). (b) world size 1 through the real
+# distributed code: the camera batch's first step against the mean of its
+# cameras' single steps, then the loop in every mode
+PAR_VIEWS = 3
+PAR_SHARDS = (2, 4)
+PART_REL = 1e-6
+PAR_BATCH = 4
+PAR_BATCH_STEPS = 120         # the profiler traces iterations 100-120
+PAR_STEPS = 20
+PAR_FAST_REL = 1e-3           # the fast-mode contract
+# exact mode, within what the CPU tests measured of one step (C11: the
+# step 3-3.5e-6 of scale from the other package); a 1/B or W-fold error
+# would be a factor of 2 or more. The card's exact step does not repeat to
+# the bit (the gathers' index_add_ adds with atomics), so the exact
+# comparisons run under torch.use_deterministic_algorithms, where one step
+# run twice must agree to the bit
+PAR_EXACT_REL = 3e-6
 TRAIN_FLAGS = ["--eval", "--resolution", "1",
                "--tile_w", "32", "--tile_h", "16",
                "--max_tiles_per_gaussian", "512",
                "--tier_budgets", "4", "12", "64",
                "--tier_fracs", "0.25", "0.1", "0.01",
                "--max_capacity", "1000000"]
+
+
+@contextlib.contextmanager
+def deterministic():
+    """The block under ``torch.use_deterministic_algorithms`` (index_add_
+    sorts its rows instead of adding with atomics): an op that has no
+    deterministic version warns instead of raising, and the block yields
+    the list of those warnings. Uninitialised memory is left as it is."""
+    import torch
+    import torch.utils.deterministic as tdet
+    fill = tdet.fill_uninitialized_memory
+    torch.use_deterministic_algorithms(True, warn_only=True)
+    tdet.fill_uninitialized_memory = False
+    try:
+        with warnings.catch_warnings(record=True) as caught:
+            warnings.simplefilter("always")
+            yield caught
+    finally:
+        torch.use_deterministic_algorithms(False)
+        tdet.fill_uninitialized_memory = fill
+
+
+def add_launches(total, launches):
+    for k, v in launches.items():
+        total[k] += v
 
 
 def reset_launches():
@@ -981,6 +1050,7 @@ def train_resume(tmp, data, seed, faults, libs):
         params, aux, run_scene.get_train_cameras()[:5], raster_cfg, seed,
         libs)
     result = {"launches": {k: v["launches"] for k, v in arms.items()},
+              "step_ms_fast": fast_rec["step_ms_median_untraced"],
               "b2": mean_kernel(rows, "b2"), "b3f": mean_kernel(rows, "b3f"),
               "b3b": mean_kernel(rows, "b3b"), "clock": clock,
               "sections": {k: [r["sections"][k] for r in rows]
@@ -2309,6 +2379,376 @@ def parses_equal(a, b) -> bool:
         return a.dtype == b.dtype and np.array_equal(a, b)
     return type(a) is type(b) and a == b
 
+def tile_partition(params, test_cams, seed, faults):
+    """Phase 17 (a): tile_stream's per-rank body for every rank r < D on
+    the one card, D in PAR_SHARDS, strips and round-robin, exact (B1/B2)
+    and fast (B3f/B3b): the shards' tiles reassembled and their packed
+    gradients summed, against the unsharded call on the same cotangents;
+    then each rank's kernel ms (the partition's load imbalance). Returns
+    (rows, summary, launches): the launches of the ranks' calls alone, not
+    of the unsharded reference or of the timing."""
+    import torch
+
+    from mvs_gaussian_splatting_tpu_torch.models.gaussians import (
+        activated, get_features)
+    from mvs_gaussian_splatting_tpu_torch.ops import stream
+    from mvs_gaussian_splatting_tpu_torch.ops.preprocess import preprocess
+    from mvs_gaussian_splatting_tpu_torch.ops.rasterize import (
+        RasterConfig, bin_and_pack_stream)
+    from mvs_gaussian_splatting_tpu_torch.parallel.tile_stream import (
+        shard_tiles, tile_layout, unshard_order)
+    dev = torch.device("cuda")
+    tw, th = 32, 16
+    cfg = RasterConfig(tile_w=tw, tile_h=th, max_tiles_per_gaussian=512,
+                       tier_budgets=(4, 12, 64),
+                       tier_fracs=(0.25, 0.1, 0.01))
+    bg = torch.tensor([0.1, 0.2, 0.3], device=dev)
+    rows = []
+    launches = dict.fromkeys(KERNELS, 0)
+    for cam in test_cams[:PAR_VIEWS]:
+        tiles_x = -(-cam.width // tw)
+        t = tiles_x * -(-cam.height // th)
+        with torch.no_grad():
+            sc, ro, op = activated(params)
+            p = preprocess(params.xyz, op, cam.view(dev), cam.width,
+                           cam.height, scales=sc, rotations=ro,
+                           shs=get_features(params), sh_degree=3,
+                           tile_w=tw, tile_h=th)
+            bins, attrs = bin_and_pack_stream(p, tiles_x, -(-cam.height // th),
+                                              cfg)
+        ids = torch.arange(t, dtype=torch.int32, device=dev)
+        g_out, g_tfin = cotangents(t, tw * th, seed, dev)
+        for fast in (False, True):
+            full = stream.composite_stream(attrs, bins.seg_start,
+                                           bins.counts, bg, ids, tiles_x, tw,
+                                           th, fast)
+            g_full, _ = stream.composite_stream_bwd(
+                attrs, bins.seg_start, bins.counts, bg, ids, tiles_x, tw, th,
+                *full, g_out, g_tfin, fast=fast)
+            for d in PAR_SHARDS:
+                pad = tile_layout(t, d)[0] - t
+                go = torch.cat([g_out, g_out.new_zeros((pad,) + g_out.shape[1:])])
+                gt = torch.cat([g_tfin, g_tfin.new_zeros((pad, tw * th))])
+                for rr in (False, True):
+                    outs, tfins, calls, entries = [], [], [], []
+                    g_sum = torch.zeros_like(attrs)
+                    reset_launches()
+                    for r in range(d):
+                        seg, cnt, sid = shard_tiles(bins, d, r, t, rr)
+                        call = (attrs, seg, cnt, bg, sid, tiles_x, tw, th,
+                                fast)
+                        o, tf = stream.composite_stream(*call)
+                        sel = sid.long()
+                        bcall = (*call[:8], o, tf, go[sel].contiguous(),
+                                 gt[sel].contiguous())
+                        g_r, _ = stream.composite_stream_bwd(*bcall,
+                                                             fast=fast)
+                        g_sum += g_r
+                        outs.append(o)
+                        tfins.append(tf)
+                        calls.append((call, bcall))
+                        entries.append(int(cnt.sum()))
+                    add_launches(launches, read_launches())
+                    fwd_ms = [cuda_ms(lambda: stream.composite_stream(*c), 3)
+                              for c, _ in calls]
+                    bwd_ms = [cuda_ms(lambda: stream.composite_stream_bwd(
+                        *bc, fast=fast), 3) for _, bc in calls]
+                    order = unshard_order(t, d, rr, dev)
+                    got = (torch.cat(outs)[order], torch.cat(tfins)[order])
+                    img_err = max(float((got[k] - full[k]).abs().max())
+                                  for k in range(2))
+                    grad_gaps = row_gaps(g_sum[:9], g_full[:9])
+                    bit = (all(torch.equal(got[k], full[k]) for k in range(2))
+                           and torch.equal(g_sum, g_full))
+                    rec = {"view": cam.image_name, "fast": fast, "shards": d,
+                           "round_robin": rr, "bit_equal": bit,
+                           "image_max_abs": img_err,
+                           "gattrs_rel_gap": max(grad_gaps),
+                           "entries_per_rank": entries,
+                           "fwd_ms_per_rank": fwd_ms,
+                           "bwd_ms_per_rank": bwd_ms,
+                           "fwd_ms_max_over_mean": max(fwd_ms)
+                           / float(np.mean(fwd_ms)),
+                           "bwd_ms_max_over_mean": max(bwd_ms)
+                           / float(np.mean(bwd_ms))}
+                    rows.append(rec)
+                    if not bit and (img_err > PART_REL
+                                    or max(grad_gaps) > PART_REL):
+                        faults.append(f"tile partition: {rec}")
+        del bins, attrs, p
+    summary = {}
+    for rr in (False, True):
+        for d in PAR_SHARDS:
+            sel = [r for r in rows if r["round_robin"] == rr
+                   and r["shards"] == d]
+            summary[f"{'rr' if rr else 'strips'}_{d}"] = {
+                k: float(np.mean([r[k] for r in sel]))
+                for k in ("fwd_ms_max_over_mean", "bwd_ms_max_over_mean")}
+    return rows, summary, launches
+
+
+def _leaf_gap(got, want):
+    """Max over the parameter leaves of max |got − want| / max |want|."""
+    gaps = {}
+    for k, w in want._asdict().items():
+        if w is None:
+            continue
+        g = getattr(got, k)
+        scale = float(w.abs().max())
+        gaps[k] = float((g - w).abs().max()) / scale if scale else float(
+            g.abs().max())
+    return gaps
+
+
+def first_steps(data, faults):
+    """Phase 17 (b), the first steps at world size 1: the camera batch
+    (PAR_BATCH cameras, fast and exact) against the mean of its cameras'
+    single steps, and the tile-parallel step against make_train_step
+    (exact), from the phase 7 checkpoint (zero moments: mu = 0.1·g). The
+    exact comparisons run under :func:`deterministic`, and the single step
+    is run twice there and without it. Returns (record, the launches of
+    the batched and tile-parallel steps alone)."""
+    import torch
+
+    from mvs_gaussian_splatting_tpu_torch.data.scene import Scene
+    from mvs_gaussian_splatting_tpu_torch.parallel.data_parallel import \
+        make_batch_train_step
+    from mvs_gaussian_splatting_tpu_torch.parallel.mesh import make_mesh
+    from mvs_gaussian_splatting_tpu_torch.parallel.tile_train import \
+        make_tile_train_step
+    from mvs_gaussian_splatting_tpu_torch.train.checkpoint import \
+        load_checkpoint
+    from mvs_gaussian_splatting_tpu_torch.train.config import (
+        ModelConfig, OptimizationConfig, PipelineConfig)
+    from mvs_gaussian_splatting_tpu_torch.train.loop import \
+        raster_config_from_pipe
+    from mvs_gaussian_splatting_tpu_torch.train.step import make_train_step
+    dev = torch.device("cuda")
+    scene = Scene(ModelConfig(source_path=data["dataset"], eval=True,
+                              resolution=1), shuffle=False)
+    cams = scene.get_train_cameras()[:PAR_BATCH]
+    views = [c.view(dev) for c in cams]
+    gts = torch.stack([c.device_image(dev) for c in cams])
+    params, adam, aux, it, sh = load_checkpoint(data["checkpoint"], dev)
+    opt = OptimizationConfig()
+    extent = float(scene.cameras_extent)
+    pipe = PipelineConfig(tile_w=32, tile_h=16, max_tiles_per_gaussian=512,
+                          tier_budgets=(4, 12, 64),
+                          tier_fracs=(0.25, 0.1, 0.01))
+    bg = torch.zeros(3, device=dev)
+    kw = dict(width=cams[0].image.shape[2], height=cams[0].image.shape[1],
+              sh_degree=sh)
+    args = (params, adam, aux)
+    rec = {}
+    launches = dict.fromkeys(KERNELS, 0)
+
+    def counted(fn, *a):
+        reset_launches()
+        out = fn(*a, it + 1, True, **kw)
+        add_launches(launches, read_launches())
+        return out
+
+    for fast in (True, False):
+        rc = raster_config_from_pipe(pipe)._replace(fast_math=fast)
+        batch = make_batch_train_step(opt, rc, extent, make_mesh(1))
+        single = make_train_step(opt, rc, extent)
+        name = "fast" if fast else "exact"
+        with (contextlib.nullcontext([]) if fast else deterministic()) as \
+                alerts:
+            _, b_adam, _, m = counted(batch, *args, views, gts, bg)
+            mus = [single(*args, v, g, bg, it + 1, True, **kw)[1].mu
+                   for v, g in zip(views, gts)]
+            mean = type(mus[0])(*[
+                None if a is None else
+                torch.stack([getattr(u, f) for u in mus]).mean(0)
+                for f, a in zip(mus[0]._fields, mus[0])])
+            gaps = _leaf_gap(b_adam.mu, mean)
+            bound = PAR_FAST_REL if fast else PAR_EXACT_REL
+            rec[f"batch_vs_mean_of_singles_{name}"] = {
+                "rel_gap": gaps, "bound": bound, "loss": float(m.loss),
+                "nonfinite_grad_rows": int(m.nonfinite_grad_rows),
+                "deterministic": not fast}
+            if max(gaps.values()) > bound or int(m.nonfinite_grad_rows):
+                faults.append(f"data_parallel first step ({name}): {gaps}")
+            if not fast:
+                tile = make_tile_train_step(opt, rc, extent,
+                                            make_mesh(1, axes=("tile",)))
+                tp, ta, _, _ = counted(tile, *args, views[0], gts[0], bg)
+                sp, sa, _, _ = single(*args, views[0], gts[0], bg, it + 1,
+                                      True, **kw)
+                gaps = _leaf_gap(ta.mu, sa.mu)
+                bit = all(torch.equal(getattr(tp, f), getattr(sp, f))
+                          for f in tp._fields if getattr(tp, f) is not None)
+                again = single(*args, views[0], gts[0], bg, it + 1, True,
+                               **kw)[1].mu
+                self_gap = _leaf_gap(again, sa.mu)
+                rec["tile_vs_train_step_exact"] = {
+                    "rel_gap": gaps, "bound": PAR_EXACT_REL,
+                    "bit_equal": bit, "deterministic": True,
+                    "train_step_vs_itself_rel_gap": self_gap}
+                if max(gaps.values()) > PAR_EXACT_REL:
+                    faults.append(f"tile_parallel first step: {gaps}")
+                if max(self_gap.values()) > 0:
+                    faults.append("exact train step not repeatable under "
+                                  f"deterministic algorithms: {self_gap}")
+        if not fast:
+            rec["deterministic_alerts"] = sorted(
+                {str(w.message).split("\n")[0][:160] for w in alerts})
+            # the same step twice as the loop runs it: the atomics' order
+            # changes from run to run
+            twice = [single(*args, views[0], gts[0], bg, it + 1, True,
+                            **kw)[1].mu for _ in range(2)]
+            rec["train_step_vs_itself_rel_gap_atomics"] = _leaf_gap(*twice)
+    del params, adam, aux
+    return rec, launches
+
+
+def parallel_loop(tmp, dataset, ckpt, start_iter, name, flags, steps, seed,
+                  profile=False):
+    """One ``cli/train.py`` resume in a multi-device mode: (record, its
+    launches)."""
+    import torch
+
+    from mvs_gaussian_splatting_tpu_torch.cli.train import main as train_main
+    prof = (["--profile_dir", os.path.join(tmp, f"profile_{name}")]
+            if profile else [])
+    reset_launches()
+    t0 = time.time()
+    torch.cuda.reset_peak_memory_stats()
+    params, aux, _, hist = train_main(
+        ["-s", dataset, "-m", os.path.join(tmp, name),
+         "--start_checkpoint", ckpt,
+         "--iterations", str(start_iter + steps), "--test_iterations", "0",
+         "--log_every", "1", "--seed", str(seed), *prof, *TRAIN_FLAGS,
+         *flags])
+    torch.cuda.synchronize()
+    launches = read_launches()
+    losses = [v for _, v in hist["loss"]]
+    # past the first steps' warm-up, before the traced window
+    ms = [1e3 / r for i, r in hist["iter_time"]
+          if start_iter + min(10, steps // 2) < i
+          <= start_iter + min(steps, 100)]
+    rec = {"phase": f"parallel_{name}", "flags": flags, "steps": steps,
+           "loss_first": losses[0], "loss_last": losses[-1],
+           "finite": bool(np.isfinite(losses).all()) and all(
+               bool(torch.isfinite(a).all()) for a in params
+               if a is not None),
+           "nonfinite_grad_rows": sum(v for _, v in
+                                      hist["nonfinite_grad_rows"]),
+           "step_ms_median": float(np.median(ms)),
+           "step_ms_quartiles": [float(np.percentile(ms, 25)),
+                                 float(np.percentile(ms, 75))],
+           "launches": launches, "seconds": round(time.time() - t0, 1),
+           "peak_memory_bytes": torch.cuda.max_memory_allocated()}
+    if profile:
+        rec["trace_100_120"] = trace_summary(
+            os.path.join(tmp, f"profile_{name}", "trace.json"))
+    del params, aux
+    return rec, launches
+
+
+def parallel_modes(tmp, data, flagship, params, test_cams, single_ms, smi,
+                   seed, faults):
+    """Phase 17: the multi-device modes on the one card, (a) the tile
+    partition and (b) world size 1 through ``torch.distributed`` (a NCCL
+    group of one): the first steps, then the loop in every mode. Returns
+    the phase's launches, counted from zero."""
+    import torch
+    import torch.distributed as dist
+
+    from mvs_gaussian_splatting_tpu_torch.parallel.gauss_stream import \
+        make_gauss_sharded_stream
+    from mvs_gaussian_splatting_tpu_torch.parallel.mesh import make_mesh
+    from mvs_gaussian_splatting_tpu_torch.models.gaussians import (
+        activated, get_features)
+    from mvs_gaussian_splatting_tpu_torch.ops.preprocess import preprocess
+    from mvs_gaussian_splatting_tpu_torch.ops.rasterize import RasterConfig
+    t_phase = time.time()
+    total = dict.fromkeys(KERNELS, 0)
+
+    rows, summary, launches = tile_partition(params, test_cams, seed, faults)
+    add_launches(total, launches)
+    emit({"phase": "parallel_tile_partition", "card": smi,
+          "max_over_mean": summary, "partitions": rows})
+
+    dist.init_process_group(
+        "nccl", init_method="file://" + os.path.join(tmp, "pg_store"),
+        rank=0, world_size=1)
+    try:
+        first, launches = first_steps(data, faults)
+        add_launches(total, launches)
+        # the exchange's quota shortfall on one test view (one shard)
+        dev = torch.device("cuda")
+        cam = test_cams[0]
+        rc = RasterConfig(tile_w=32, tile_h=16, max_tiles_per_gaussian=512,
+                          tier_budgets=(4, 12, 64),
+                          tier_fracs=(0.25, 0.1, 0.01))
+        reset_launches()
+        with torch.no_grad():
+            sc, ro, op = activated(params)
+            p = preprocess(params.xyz, op, cam.view(dev), cam.width,
+                           cam.height, scales=sc, rotations=ro,
+                           shs=get_features(params), sh_degree=3,
+                           tile_w=32, tile_h=16)
+            img, gaux = make_gauss_sharded_stream(
+                make_mesh(1, axes=("gauss",)), "gauss", cam.width,
+                cam.height, rc)(p, torch.zeros(3, device=dev))
+        add_launches(total, read_launches())
+        first["gauss_render_view0"] = {
+            k: int(gaux[k]) for k in ("overflow_quota", "overflow_capacity",
+                                      "overflow_tiles", "instance_load")}
+        del p, img
+        emit({"phase": "parallel_first_steps", "card": smi,
+              "world_size": dist.get_world_size(),
+              "backend": dist.get_backend(), **first})
+        ckpt, it = data["checkpoint"], RESUME_ITER
+        grow_ckpt = os.path.join(tmp, "start_grow", f"chkpnt{GROW_ITER}.npz")
+        # the single-camera loop over the same window, as the control of
+        # the 20-step runs' step times
+        runs = [("single_camera", data["dataset"], ckpt, it, [], PAR_STEPS,
+                 False),
+                ("data_parallel_4", data["dataset"], ckpt, it,
+                 ["--data_parallel", str(PAR_BATCH)], PAR_BATCH_STEPS, True),
+                ("tile_parallel_1", data["dataset"], ckpt, it,
+                 ["--tile_parallel", "1"], PAR_STEPS, False),
+                ("grid_2x1", data["dataset"], ckpt, it,
+                 ["--data_parallel", "2", "--tile_parallel", "1"],
+                 PAR_STEPS, False),
+                ("gauss_parallel_1", data["dataset"], ckpt, it,
+                 ["--gauss_parallel", "1"], PAR_STEPS, False),
+                ("grow_data_parallel_4", flagship["dataset"], grow_ckpt,
+                 GROW_ITER, ["--grow_dir", "--spec_capacity", str(GROW_SPEC),
+                             "--growdirs_lr", "0.01", "--data_parallel",
+                             str(PAR_BATCH)], PAR_STEPS, False)]
+        recs = {}
+        for name, dataset, start, at, flags, steps, prof in runs:
+            rec, launches = parallel_loop(tmp, dataset, start, at, name,
+                                          flags, steps, seed, prof)
+            add_launches(total, launches)
+            recs[name] = rec
+            rec["card"] = smi
+            if name.startswith(("data", "grow")):
+                rec["step_ms_per_camera"] = rec["step_ms_median"] / PAR_BATCH
+            elif name.startswith("grid"):
+                rec["step_ms_per_camera"] = rec["step_ms_median"] / 2
+            rec["single_camera_step_ms_phase7"] = single_ms
+            emit(rec)
+            if not rec["finite"] or rec["nonfinite_grad_rows"]:
+                faults.append(f"{rec['phase']}: not finite ({rec})")
+            if launches["stream_fwd_fast"] < steps or launches[
+                    "stream_bwd_fast"] < steps:
+                faults.append(f"{rec['phase']}: launches {launches}")
+    finally:
+        dist.destroy_process_group()
+    emit({"phase": "parallel_modes", "launches": total,
+          "seconds": round(time.time() - t_phase, 1)})
+    for k in ("stream_fwd", "stream_bwd", "stream_fwd_fast",
+              "stream_bwd_fast"):
+        if total[k] == 0:
+            faults.append(f"parallel modes: {k} never launched")
+    return total
+
+
 
 def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
@@ -2629,6 +3069,9 @@ def main(argv=None):
         compressed = compress_phase(tmp, test_cams, cfg_base, cams, mean_gt,
                                     faults)
         tools_phase(tmp, flagship, faults)
+        parallel = parallel_modes(tmp, data, flagship, params, test_cams,
+                                  resume["step_ms_fast"], smi, args.seed,
+                                  faults)
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
     # 10. sections: the split, the SASS loop and the issue-rate floor
@@ -2689,7 +3132,8 @@ def main(argv=None):
              "padded_cli": cli["launches"], "large_tiles": large["launches"],
              "dataset": flagship["launches"],
              **{f"grow_resume_{k}": v for k, v in grow.items()},
-             **chain, "compress_render": compressed["launches"]}
+             **chain, "compress_render": compressed["launches"],
+             "parallel_modes": parallel}
     totals = {k: sum(p[k] for p in paths.values()) for k in KERNELS}
     emit({"phase": "main_path_launches", "paths": paths, "totals": totals,
           "seconds_total": round(time.time() - t_start, 1)})

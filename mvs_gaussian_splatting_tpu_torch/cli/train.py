@@ -7,6 +7,15 @@
 Training composites in fast-math mode by default, as in the JAX package
 (``--no-fast_math`` for exact mode); ``--backend pallas`` or ``jnp``
 composites padded per-tile tables instead of the instance stream.
+
+The multi-device modes (``--data_parallel B``, ``--tile_parallel N``, both
+at once, ``--gauss_parallel N``) run on one device at world size 1, or
+over the ranks that ``torchrun`` starts, one per device::
+
+    torchrun --nproc_per_node 4 -m mvs_gaussian_splatting_tpu_torch.cli.train \
+        -s <scene> -m <out> --data_parallel 4
+
+Each rank trains on ``cuda:LOCAL_RANK``; rank 0 writes the model.
 """
 
 from __future__ import annotations
@@ -17,6 +26,7 @@ import uuid
 import torch
 
 from ..ops.stream import tile_limit
+from ..parallel import multihost
 from ..train.config import (ModelConfig, OptimizationConfig, PipelineConfig,
                             TrainRunConfig)
 from ..train.loop import train
@@ -53,9 +63,13 @@ def main(argv=None):
         model_cfg.model_path = f"./output/{str(uuid.uuid4())[:10]}"
     print(f"Optimizing {model_cfg.model_path}")
     seed_everything(run_cfg.seed)
+    multihost.initialize()
+    device = args.device
+    if device == "cuda" and multihost.world_size() > 1:
+        device = str(multihost.device())
     with torch.autograd.set_detect_anomaly(args.detect_anomaly):
         result = train(model_cfg, opt_cfg, pipe_cfg, run_cfg,
-                       device=args.device, profile_dir=args.profile_dir)
+                       device=device, profile_dir=args.profile_dir)
     print("\nTraining complete.")
     return result
 

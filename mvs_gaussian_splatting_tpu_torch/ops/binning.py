@@ -1,7 +1,7 @@
 """Tile binning: the tile-sorted instance stream and the padded per-tile
 tables.
 
-Port of the JAX package's ``ops/binning.py`` but for ``round_robin``:
+Port of the JAX package's ``ops/binning.py``:
 
 - :func:`bin_instances_stream` and the host-side layout helpers (the stream
   backend). Gaussians are depth-sorted once, each emits its tile instances
@@ -301,6 +301,7 @@ def bin_instances_stream(processed: Processed, tiles_x: int, tiles_y: int,
                          tile_h: int = 16,
                          tier_budgets=(4, 12),
                          tier_fracs=(0.25, 0.1),
+                         round_robin: int = 0,
                          order: Optional[torch.Tensor] = None,
                          rect_ordered: Optional[torch.Tensor] = None
                          ) -> StreamBins:
@@ -312,6 +313,13 @@ def bin_instances_stream(processed: Processed, tiles_x: int, tiles_y: int,
     (nested area-rank prefixes, each floored at min(N, 512)). Shortfall is
     counted in ``overflow_tiles``. ``tier_budgets=()`` is the flat layout.
 
+    ``round_robin=D`` (D > 0) sorts tile ids destination-major: tile ``t``
+    sorts under ``(t mod D)·⌈T/D⌉ + t div D``, so the tiles of round-robin
+    shard d (t ≡ d mod D) form one contiguous span of the stream, ready for
+    a fixed-quota exchange (``parallel/gauss_stream.py``). ``seg_start`` and
+    ``counts`` then have length ``D·⌈T/D⌉``; position k is tile
+    ``(k mod ⌈T/D⌉)·D + k div ⌈T/D⌉`` (pad positions are empty).
+
     ``order``/``rect_ordered``: optional precomputed depth order
     (``argsort(where(mask, depth, inf))``, or a prefix of it) and the
     matching rows of :func:`rect_table`; ``inst_rank`` indexes ``order``.
@@ -321,7 +329,8 @@ def bin_instances_stream(processed: Processed, tiles_x: int, tiles_y: int,
     dev = processed.xy.device
     d = max_tiles_per_gaussian
     num_tiles = tiles_x * tiles_y
-    t_out = num_tiles
+    t_per_rr = -(-num_tiles // round_robin) if round_robin else 0
+    t_out = round_robin * t_per_rr if round_robin else num_tiles
     i32 = torch.int32
 
     if order is None:
@@ -361,7 +370,10 @@ def bin_instances_stream(processed: Processed, tiles_x: int, tiles_y: int,
         valid = j < torch.clamp(row_area, max=hi)[None, :]
         valid &= _tile_in_level_set(row_rectT[5:7].T, row_rectT[7], tx.T,
                                     ty.T, tile_w, tile_h).T
-        tid = torch.where(valid, ty * tiles_x + tx, t_out).to(i32)
+        tid = ty * tiles_x + tx
+        if round_robin:
+            tid = (tid % round_robin) * t_per_rr + tid // round_robin
+        tid = torch.where(valid, tid, t_out).to(i32)
         rk = rows[None, :].expand(tid.shape)
         if packed:
             key = torch.where(valid, (tid << rank_bits) | rk, sentinel)

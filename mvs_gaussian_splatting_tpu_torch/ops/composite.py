@@ -68,16 +68,19 @@ def composite_tiles_jnp(xy, conic, rgb, opacity, valid, tile_ids,
 
 def composite_tiles_jnp_batched(xy, conic, rgb, opacity, valid,
                                 tiles_x: int, tile_w: int, tile_h: int, bg,
-                                tile_batch: int):
+                                tile_batch: int, tile_ids=None):
     """:func:`composite_tiles_jnp` over all T tiles, ``tile_batch`` at a
     time; where autograd records, each batch is recomputed in the backward
     instead of kept (the JAX package's checkpointed scan) → (out [T, 3, P],
-    final_T [T, P])."""
+    final_T [T, P]). ``tile_ids`` [T]: the global tile of each row (a
+    shard's tiles); default 0..T-1."""
     t = opacity.shape[0]
+    if tile_ids is None:
+        tile_ids = torch.arange(t, device=opacity.device)
     outs, tfins = [], []
     for b0 in range(0, t, tile_batch):
         sl = slice(b0, min(b0 + tile_batch, t))
-        ids = torch.arange(sl.start, sl.stop, device=opacity.device)
+        ids = tile_ids[sl]
         args = (xy[sl], conic[sl], rgb[sl], opacity[sl], valid[sl], ids,
                 tiles_x, tile_w, tile_h, bg)
         out, tfin = (checkpoint(composite_tiles_jnp, *args,

@@ -325,8 +325,10 @@ def composite_stream_bwd_plain(attrs, seg_start, counts, bg, tile_ids,
     """Plain PyTorch version of :func:`composite_stream_bwd`, same signature.
 
     Replays the forward entry by entry, vectorised over tiles and pixels,
-    with the kernel's arithmetic in the kernel's order; only the sum over a
-    tile's pixels is taken in another order. ``count_visits=True`` also
+    with the kernel's arithmetic in the kernel's order, but for two sums:
+    the sum over a tile's pixels is taken in another order, and the running
+    prefix of w·(g·rgb) is compensated (Kahan), which B2's running sum is
+    not. ``count_visits=True`` also
     returns the (entry, pixel) pairs visited, as
     :func:`composite_stream_plain` counts them."""
     dev = attrs.device
@@ -344,6 +346,7 @@ def composite_stream_bwd_plain(attrs, seg_start, counts, bg, tile_ids,
     gattrs = torch.zeros_like(attrs)
     trans = torch.ones_like(final_t)
     prefix = torch.zeros_like(final_t)
+    comp = torch.zeros_like(final_t)
     done = torch.zeros(final_t.shape, dtype=torch.bool, device=dev)
     visits = torch.zeros(final_t.shape, dtype=torch.int64, device=dev)
     steps = int(cnt.max()) if t else 0
@@ -368,9 +371,15 @@ def composite_stream_bwd_plain(attrs, seg_start, counts, bg, tile_ids,
         include = contrib & ~fail
         w = alpha * trans
         g_dot_rgb = (gr * r + gg * gc) + gb * b
-        prefix = torch.where(include, prefix + w * g_dot_rgb, prefix)
-        dalpha = ((g_dot_rgb * trans - (g_dot_out - prefix) / one_minus)
-                  - tfin_term / one_minus)
+        # the included entries' prefix sum of w·(g·rgb), compensated: the
+        # suffix g·out − prefix cancels, and a running f32 sum's error grows
+        # with the segment's length (ROADMAP C11)
+        term = torch.where(include, w * g_dot_rgb - comp, 0.0)
+        tot = prefix + term
+        comp = torch.where(include, (tot - prefix) - term, comp)
+        prefix = tot
+        dalpha = ((g_dot_rgb * trans - ((g_dot_out - prefix) + comp)
+                   / one_minus) - tfin_term / one_minus)
         slope = include & (raw < 0.99)
         dpower = torch.where(slope, dalpha * op * g, 0.0)
         rows = torch.stack([

@@ -9,9 +9,9 @@ through ``preprocess`` and ``rasterize``, so through the same composite
 kernels as the vanilla step (B3f / B3b in fast-math mode, B1 / B2 in exact
 mode), whose VJPs carry the candidates' gradients back into the grow and
 split parameters. The densification statistics are taken over the
-original rows only. The camera-batched variant of the JAX package
-(``make_spec_batch_train_step``) belongs to the multi-device modes and is
-not ported (ROADMAP A17).
+original rows only. :func:`make_spec_batch_train_step` composes it with
+camera batches (``parallel/data_parallel.py``): the render set is built
+once per step and rendered against every camera of the batch.
 """
 
 from __future__ import annotations
@@ -130,5 +130,73 @@ def make_spec_train_step(opt_cfg, raster_cfg: RasterConfig,
             tier_need_counts=torch.zeros((0,), dtype=torch.int32,
                                          device=dev))
         return new_params, new_adam, new_aux, metrics
+
+    return step
+
+
+def make_spec_batch_train_step(opt_cfg, raster_cfg: RasterConfig,
+                               spatial_lr_scale: float, grow_cfg: GrowConfig,
+                               sphere_dirs, spec_size: int, extent: float,
+                               mesh, axis: str = "data"):
+    """The camera-batched speculative step (the JAX package's
+    ``make_spec_batch_train_step``): grow mode composed with
+    ``parallel/data_parallel.py``. The speculative render set depends only
+    on (params, aux, draws), so it is built once per step, the same on
+    every rank (the split offsets' ``noise`` / ``generator`` draws must be
+    the same on every rank: a generator seeded alike that every rank calls
+    alike), and each rank renders it against its block of the batch. The
+    parameter gradients are SUM all-reduced over ``axis`` before the scrub
+    and Adam; the statistics of the original rows follow the batch
+    reductions of ``parallel/data_parallel.py``.
+
+    Returns ``step(params, adam, aux, cams, gts, bg, step_i, do_stats, *,
+    width, height, sh_degree, render_n=0, instance_cap=0, generator=None,
+    noise=None)`` → (params, adam, aux, BatchStepMetrics)."""
+    from ..parallel.data_parallel import (CameraBlock, finish_batch_step,
+                                          leaves_of)
+    from ..parallel.mesh import batch_sharded
+    dirs = (torch.as_tensor(sphere_dirs, dtype=torch.float32)
+            if sphere_dirs is not None else None)
+
+    def step(params: GaussianParams, adam: AdamState, aux: GaussianAux,
+             cams, gts, bg, step_i: int, do_stats: bool, *, width: int,
+             height: int, sh_degree: int, render_n: int = 0,
+             instance_cap: int = 0,
+             generator: Optional[torch.Generator] = None, noise=None):
+        rc = _layout(raster_cfg, instance_cap)
+        dev = params.xyz.device
+        n_render = render_n if render_n else params.xyz.shape[0]
+        aux_s = GaussianAux(*[a[:n_render] for a in aux])
+        grads_stat_s = densification_grads(aux)[:n_render]
+        leaves = leaves_of(params)
+        n_aug = n_render + 2 * spec_size
+        block = CameraBlock(opt_cfg, dev)
+        with record_function("train_step/forward"):
+            augd = speculative_augment(
+                _prefix(leaves, n_render), aux_s, grads_stat_s,
+                None if dirs is None else dirs.to(dev),
+                grow_cfg, opt_cfg.densify_grad_threshold, extent,
+                opt_cfg.percent_dense, spec_size, generator, noise)
+            shs = torch.cat([augd["f_dc"], augd["f_rest"]], dim=1)
+            scales = torch.exp(augd["scaling"])
+            rotations = normalize(augd["rotation"])
+            opacity = torch.sigmoid(augd["opacity"][:, 0])
+            for cam, gt in zip(batch_sharded(mesh, list(cams), axis),
+                               batch_sharded(mesh, gts, axis)):
+                ndc = torch.zeros((n_aug, 2), dtype=torch.float32,
+                                  device=dev, requires_grad=True)
+                processed = preprocess(
+                    augd["xyz"], opacity, cam, width, height, scales=scales,
+                    rotations=rotations, shs=shs, sh_degree=sh_degree,
+                    ndc_offset=ndc, mask=augd["alive"], tile_w=rc.tile_w,
+                    tile_h=rc.tile_h)
+                img, raux = rasterize(processed, width, height, bg, rc)
+                # the statistics over the original rows only
+                block.add(img, gt, ndc, raux["radii"][:n_render],
+                          raux["overflow_tiles"], raux["overflow_capacity"],
+                          raux["tile_counts"].sum())
+        return finish_batch_step(block, leaves, params, adam, aux,
+                                 gts.shape[0], step_i, do_stats,
+                                 spatial_lr_scale, mesh, axis)
 
     return step

@@ -10,9 +10,18 @@ Training composites in the configuration's mode: fast math by default
 (:func:`eval_config`). Grow mode (``model_cfg.grow_dir`` /
 ``continous_dir`` / ``grow_distance`` / ``learn_split_*``) trains through
 ``train/grow_step.py``'s speculative step inside its window and densifies
-with ``densify_and_prune_grow``. Not ported: the multi-device modes
-(``data_parallel`` / ``tile_parallel`` / ``gauss_parallel`` and their grid,
-A17) and the network viewer (A14). Each raises.
+with ``densify_and_prune_grow``.
+
+The multi-device modes (``parallel/``) run on the process group that
+``parallel.multihost.initialize`` joined (world size 1 without one):
+``data_parallel`` B cameras per step over min(world, B) ranks (with grow
+mode's batched speculative step inside its window), ``tile_parallel`` one
+camera's tiles over that many ranks, both at once on a (data, tile) grid,
+and ``gauss_parallel`` the Gaussians sharded. Every rank runs this loop
+with the same seeds, so camera draws, densification and every random draw
+are the same on every rank; after each densify round a checksum of the
+parameters and Adam state is compared across the ranks. Only rank 0
+writes files. The network viewer (A14) is not ported.
 """
 
 from __future__ import annotations
@@ -34,12 +43,13 @@ from ..models.gaussians import (GaussianParams, compact, compact_state,
                                 init_from_pcd, num_alive, pad_capacity)
 from ..models.grow import GrowConfig
 from ..ops.rasterize import RasterConfig, widen_eval_budgets
+from ..parallel import multihost
 from ..utils.sphere import sphere_points
 from ..utils.system import seed_everything
 from .checkpoint import load_checkpoint, save_checkpoint
 from .config import (ModelConfig, OptimizationConfig, PipelineConfig,
                      TrainRunConfig, save_cfg_args)
-from .grow_step import make_spec_train_step
+from .grow_step import make_spec_batch_train_step, make_spec_train_step
 from .optim import AdamState, adam_init
 from .step import make_eval_metrics, make_eval_render, make_train_step
 
@@ -86,11 +96,91 @@ def adaptive_eval_layout(params, aux, cameras, eval_cfg: RasterConfig,
     return (d, tuple(budgets), tuple(fracs)), bound + (-bound) % 128
 
 
-def _refuse_unported(run_cfg: TrainRunConfig) -> None:
-    for flag in ("data_parallel", "tile_parallel", "gauss_parallel"):
-        if getattr(run_cfg, flag):
-            raise NotImplementedError(f"{flag} training is not ported "
-                                      "(ROADMAP A17)")
+def make_parallel_step(opt_cfg, raster_cfg: RasterConfig,
+                       run_cfg: TrainRunConfig, spatial_lr_scale: float,
+                       log_fn: Callable[[str], None] = print):
+    """The multi-device step the run's flags ask for, as the JAX loop
+    dispatches (``train/loop.py:165-215``): (kind, mesh, step) with kind
+    "batch" (data_parallel, or the grid when tile_parallel is set too),
+    "tile" (tile_parallel) or "gauss" (gauss_parallel, whose step takes the
+    state sharded by ``parallel/gauss_train.py:shard_state``); (None, None,
+    None) when no flag is set. A mesh that asks for more ranks than
+    the world has is an error, as is a rank outside the mesh."""
+    from ..parallel.mesh import grid_mesh, make_mesh
+    world = multihost.world_size()
+    dp, tp, gp = (run_cfg.data_parallel, run_cfg.tile_parallel,
+                  run_cfg.gauss_parallel)
+    if dp > 0 and tp > 0:
+        from ..parallel.grid_train import make_grid_train_step
+        if tp > world:
+            raise ValueError(f"grid_parallel needs {tp} ranks for its tile "
+                             f"axis, the world has {world}")
+        n_data = min(world // tp, dp)
+        if dp % n_data:
+            raise ValueError(f"grid_parallel: {dp} cameras do not divide "
+                             f"over {n_data} data rows")
+        mesh = grid_mesh(n_data, tp)
+        step = make_grid_train_step(opt_cfg, raster_cfg, spatial_lr_scale,
+                                    mesh)
+        kind = "batch"
+        log_fn(f"grid-parallel: {dp} cameras/step × {tp}-way tile sharding "
+               f"({mesh.size} device(s))")
+    elif dp > 0:
+        from ..parallel.data_parallel import make_batch_train_step
+        mesh = make_mesh(min(world, dp))
+        step = make_batch_train_step(opt_cfg, raster_cfg, spatial_lr_scale,
+                                     mesh)
+        kind = "batch"
+        log_fn(f"data-parallel: {dp} cameras/step over {mesh.size} "
+               "device(s)")
+    elif tp > 0:
+        from ..parallel.tile_train import make_tile_train_step
+        mesh = make_mesh(tp, axes=("tile",))
+        step = make_tile_train_step(opt_cfg, raster_cfg, spatial_lr_scale,
+                                    mesh)
+        kind = "tile"
+        log_fn(f"tile-parallel: 1 camera/step, tiles sharded over "
+               f"{mesh.size} device(s)")
+    elif gp > 0:
+        from ..parallel.gauss_train import make_gauss_train_step
+        mesh = make_mesh(gp, axes=("gauss",))
+        step = make_gauss_train_step(opt_cfg, raster_cfg, spatial_lr_scale,
+                                     mesh)
+        kind = "gauss"
+        log_fn(f"gauss-parallel: params sharded over {mesh.size} "
+               "device(s), one all_to_all instance exchange per step")
+    else:
+        return None, None, None
+    if not mesh.member:
+        raise ValueError(f"rank {mesh.rank} lies outside the {mesh.size}-rank "
+                         f"mesh: start {mesh.size} processes")
+    return kind, mesh, step
+
+
+def state_checksum(params, adam: AdamState) -> torch.Tensor:
+    """[3] float64: the sums of every parameter, first and second moment,
+    the same on every rank while the ranks agree."""
+    def total(tree):
+        return sum(float(a.double().sum()) for a in tree if a is not None)
+    return torch.tensor([total(params), total(adam.mu), total(adam.nu)],
+                        dtype=torch.float64)
+
+
+def check_ranks_agree(params, adam: AdamState, iteration: int,
+                      device) -> list:
+    """All-gather :func:`state_checksum` over the world and raise if any
+    rank's differs (a rank drew other random numbers, or reduced in
+    another order). Returns the checksum; [] at world size 1."""
+    import torch.distributed as dist
+    if multihost.world_size() == 1:
+        return []
+    mine = state_checksum(params, adam).to(device)
+    every = [torch.zeros_like(mine) for _ in range(multihost.world_size())]
+    dist.all_gather(every, mine)
+    if any(not torch.equal(e, mine) for e in every):
+        raise RuntimeError(f"[ITER {iteration}] the ranks diverged: state "
+                           f"checksums {[e.tolist() for e in every]}")
+    return mine.tolist()
 
 
 def train(model_cfg: ModelConfig, opt_cfg: OptimizationConfig,
@@ -103,12 +193,12 @@ def train(model_cfg: ModelConfig, opt_cfg: OptimizationConfig,
     ``profile_dir``: write a torch.profiler trace of this run's iterations
     100-120 (counted from the checkpoint's iteration on a resume) there as
     ``trace.json``."""
-    _refuse_unported(run_cfg)
     device = torch.device(device)
     seed_everything(run_cfg.seed)
+    main_rank = multihost.rank() == 0
     if scene is None:
         scene = Scene(model_cfg)
-    if model_cfg.model_path:
+    if model_cfg.model_path and main_rank:
         save_cfg_args(model_cfg.model_path, model_cfg)
 
     raster_cfg = raster_config_from_pipe(pipe_cfg)
@@ -140,6 +230,8 @@ def train(model_cfg: ModelConfig, opt_cfg: OptimizationConfig,
                f"(capacity {capacity})")
 
     train_step = make_train_step(opt_cfg, raster_cfg, spatial_lr_scale)
+    kind, mesh, par_step = make_parallel_step(
+        opt_cfg, raster_cfg, run_cfg, spatial_lr_scale, log_fn)
     eval_cfg = eval_config(raster_cfg)
     eval_render = make_eval_render(eval_cfg)
     eval_metrics = make_eval_metrics(eval_cfg)
@@ -158,7 +250,7 @@ def train(model_cfg: ModelConfig, opt_cfg: OptimizationConfig,
     grow_cfg = GrowConfig(**{k: getattr(model_cfg, k)
                              for k in GrowConfig._fields})
     has_grow = grow_cfg.grow_dir or grow_cfg.continous_dir
-    spec_step = None
+    spec_step = spec_batch_step = None
     spec_size = pipe_cfg.spec_capacity
     sphere_dirs = None
     if any(model_cfg.extras().values()):
@@ -169,6 +261,12 @@ def train(model_cfg: ModelConfig, opt_cfg: OptimizationConfig,
         spec_step = make_spec_train_step(
             opt_cfg, raster_cfg, spatial_lr_scale, grow_cfg, sphere_dirs,
             spec_size, float(scene.cameras_extent))
+        if kind == "batch":
+            # grow mode with camera batches: the speculative set is
+            # camera-independent, so it renders against every camera
+            spec_batch_step = make_spec_batch_train_step(
+                opt_cfg, raster_cfg, spatial_lr_scale, grow_cfg,
+                sphere_dirs, spec_size, float(scene.cameras_extent), mesh)
     # the instance cap's bound counts the speculative rows too: the load it
     # buckets may be a speculative step's
     spec_rows = 2 * spec_size if spec_step is not None else 0
@@ -183,7 +281,7 @@ def train(model_cfg: ModelConfig, opt_cfg: OptimizationConfig,
     gen = torch.Generator(device=device)
     gen.manual_seed(run_cfg.seed + 1)
 
-    tb_writer = _make_tb_writer(model_cfg.model_path)
+    tb_writer = _make_tb_writer(model_cfg.model_path if main_rank else "")
     viewpoint_stack: list = []
     history = {"loss": [], "psnr_test": {}, "n_alive": {}, "iter_time": []}
     best_test_psnr = -1.0
@@ -191,8 +289,50 @@ def train(model_cfg: ModelConfig, opt_cfg: OptimizationConfig,
     ema_loss = 0.0
     loss = float("nan")
     t_last = time.perf_counter()
-    progress = _make_progress(first_iter, opt_cfg.iterations)
+    progress = (_make_progress(first_iter, opt_cfg.iterations) if main_rank
+                else None)
     profiler = None
+    # gauss_parallel keeps the rank's shard of (params, adam, aux) between
+    # steps, made whole where the loop needs every row
+    sharded = False
+
+    def whole():
+        nonlocal params, adam, aux, sharded
+        if sharded:
+            from ..parallel.gauss_train import gather_state
+            params, adam, aux = gather_state(params, adam, aux, mesh)
+            sharded = False
+
+    def n_alive_now() -> int:
+        n = num_alive(aux)
+        if sharded:
+            from ..parallel.mesh import all_reduce
+            n = all_reduce(n.reshape(1).to(torch.int64), mesh)[0]
+        return int(n)
+
+    def draw_camera_batch(first_cam):
+        """Fill the batch with cameras of the first one's size; a scene
+        with too few pads the batch by repeating the drawn ones."""
+        nonlocal viewpoint_stack
+        size = first_cam.image.shape
+        cams = [first_cam]
+        tries = 0
+        max_tries = 4 * len(scene.get_train_cameras())
+        while len(cams) < run_cfg.data_parallel and tries < max_tries:
+            if not viewpoint_stack:
+                viewpoint_stack = scene.get_train_cameras().copy()
+            c = viewpoint_stack.pop(random.randint(0,
+                                                   len(viewpoint_stack) - 1))
+            tries += 1
+            if c.image.shape == size:
+                cams.append(c)
+        if len(cams) < run_cfg.data_parallel:
+            if iteration == first_iter + 1:
+                log_fn(f"data-parallel: only {len(cams)} cameras at "
+                       f"{size[2]}x{size[1]} — padding batch with repeats")
+            k = len(cams)
+            cams = [cams[i % k] for i in range(run_cfg.data_parallel)]
+        return cams
 
     for iteration in range(first_iter + 1, opt_cfg.iterations + 1):
         if profile_dir and iteration == first_iter + PROFILE_WINDOW[0]:
@@ -224,11 +364,37 @@ def train(model_cfg: ModelConfig, opt_cfg: OptimizationConfig,
         step_kw = dict(width=cam.image.shape[2], height=cam.image.shape[1],
                        sh_degree=active_sh, render_n=render_n,
                        instance_cap=inst_cap)
-        if spec_now:
+        if kind == "gauss" and not spec_now:
+            if not sharded:
+                from ..parallel.gauss_train import shard_state
+                params, adam, aux = shard_state(params, adam, aux, mesh)
+                sharded = True
+            params, adam, aux, metrics = par_step(
+                params, adam, aux, cam.view(device), cam.device_image(device),
+                bg_it, iteration, do_stats, **step_kw)
+        else:
+            whole()
+        if kind == "batch":
+            cams = draw_camera_batch(cam)
+            views = [c.view(device) for c in cams]
+            gts = torch.stack([c.device_image(device) for c in cams])
+            if spec_now:
+                params, adam, aux, metrics = spec_batch_step(
+                    params, adam, aux, views, gts, bg_it, iteration,
+                    do_stats, generator=gen, **step_kw)
+            else:
+                params, adam, aux, metrics = par_step(
+                    params, adam, aux, views, gts, bg_it, iteration,
+                    do_stats, **step_kw)
+        elif spec_now:
             params, adam, aux, metrics = spec_step(
                 params, adam, aux, cam.view(device), cam.device_image(device),
                 bg_it, iteration, do_stats, generator=gen, **step_kw)
-        else:
+        elif kind == "tile":
+            params, adam, aux, metrics = par_step(
+                params, adam, aux, cam.view(device), cam.device_image(device),
+                bg_it, iteration, do_stats, **step_kw)
+        elif kind is None:
             params, adam, aux, metrics = train_step(
                 params, adam, aux, cam.view(device), cam.device_image(device),
                 bg_it, iteration, do_stats, visible_cap=vis_cap, **step_kw)
@@ -236,6 +402,8 @@ def train(model_cfg: ModelConfig, opt_cfg: OptimizationConfig,
         eval_now = (iteration in run_cfg.test_iterations
                     or (run_cfg.eval_every
                         and iteration % run_cfg.eval_every == 0))
+        if eval_now:
+            whole()
         # the report evaluates the pre-densify state (densify writes in
         # place, so keep a copy at eval iterations only)
         eval_state = ((_clone(params), _clone(aux), render_n) if eval_now
@@ -245,6 +413,7 @@ def train(model_cfg: ModelConfig, opt_cfg: OptimizationConfig,
         if iteration < opt_cfg.densify_until_iter:
             if (iteration > opt_cfg.densify_from_iter
                     and iteration % opt_cfg.densification_interval == 0):
+                whole()
                 n_al = int(num_alive(aux))
                 capacity = params.xyz.shape[0]
                 if n_al > 0.7 * capacity and capacity < opt_cfg.max_capacity:
@@ -278,6 +447,10 @@ def train(model_cfg: ModelConfig, opt_cfg: OptimizationConfig,
                            f"→ {info['n_alive']} alive")
                 history.setdefault("densify", []).append(
                     dict(info, iteration=iteration))
+                sums = check_ranks_agree(params, adam, iteration, device)
+                if sums:
+                    history.setdefault("rank_checksums", []).append(
+                        (iteration, sums))
                 # keep alive slots a prefix so the render slice stays
                 # valid, then re-bucket the render length
                 params, mu, nu, aux = compact_state(params, mu, nu, aux)
@@ -309,6 +482,7 @@ def train(model_cfg: ModelConfig, opt_cfg: OptimizationConfig,
             if (iteration % opt_cfg.opacity_reset_interval == 0
                     or (model_cfg.white_background
                         and iteration == opt_cfg.densify_from_iter)):
+                whole()
                 params, mu, nu = reset_opacity(params, adam.mu, adam.nu)
                 adam = adam._replace(mu=mu, nu=nu)
 
@@ -347,10 +521,12 @@ def train(model_cfg: ModelConfig, opt_cfg: OptimizationConfig,
                     inst_cap = grown
                     log_fn(f"[ITER {iteration}] instance cap overflow "
                            f"({int(oc_now)} entries) → {inst_cap}")
-        if progress is not None and iteration % 10 == 0:
-            progress.set_postfix({"Loss": f"{ema_loss:.7f}",
-                                  "pts": int(num_alive(aux))})
-            progress.update(10)
+        if iteration % 10 == 0:
+            pts = n_alive_now()
+            if progress is not None:
+                progress.set_postfix({"Loss": f"{ema_loss:.7f}",
+                                      "pts": pts})
+                progress.update(10)
         if iteration % run_cfg.log_every == 0:
             now = time.perf_counter()
             it_s = run_cfg.log_every / (now - t_last)
@@ -365,14 +541,14 @@ def train(model_cfg: ModelConfig, opt_cfg: OptimizationConfig,
                 tb_writer.add_scalar("iter_time", 1000.0 / it_s, iteration)
         if iteration % 500 == 0:
             log_fn(f"[ITER {iteration}] loss {ema_loss:.5f} "
-                   f"alive {int(num_alive(aux))} "
+                   f"alive {n_alive_now()} "
                    f"({history['iter_time'][-1][1]:.1f} it/s)"
                    if history["iter_time"] else f"[ITER {iteration}]")
 
         if eval_now:
             _report(iteration, eval_state, scene, eval_cfg, eval_metrics,
                     eval_render, bg, active_sh, history, tb_writer,
-                    model_cfg, log_fn, device, stream_caps)
+                    model_cfg, log_fn, device, stream_caps, main_rank)
             ps_now = history["psnr_test"].get(iteration)
             # divergence guard: an unattended run stops and checkpoints
             # instead of training on garbage
@@ -387,7 +563,7 @@ def train(model_cfg: ModelConfig, opt_cfg: OptimizationConfig,
                            f"test PSNR {ps_now:.2f} vs best "
                            f"{best_test_psnr:.2f}")
                     if diverged_evals >= run_cfg.divergence_patience:
-                        if model_cfg.model_path:
+                        if model_cfg.model_path and main_rank:
                             save_checkpoint(
                                 f"{model_cfg.model_path}/chkpnt{iteration}"
                                 ".npz", params, adam, aux, iteration,
@@ -398,31 +574,38 @@ def train(model_cfg: ModelConfig, opt_cfg: OptimizationConfig,
                                f"best {best_test_psnr:.2f} — checkpoint "
                                "saved")
                         history["aborted"] = iteration
-                        _write_history(model_cfg.model_path, history)
+                        _write_history(model_cfg.model_path if main_rank
+                                       else "", history)
                         return params, aux, scene, history
                 else:
                     diverged_evals = 0
 
-        if iteration in run_cfg.save_iterations and model_cfg.model_path:
+        if model_cfg.model_path and (
+                iteration in run_cfg.save_iterations
+                or iteration in run_cfg.checkpoint_iterations):
+            whole()
+        saving = main_rank and model_cfg.model_path
+        if iteration in run_cfg.save_iterations and saving:
             log_fn(f"[ITER {iteration}] Saving Gaussians")
             scene.save(iteration, compact(params, aux))
-        if (iteration in run_cfg.checkpoint_iterations
-                and model_cfg.model_path):
+        if iteration in run_cfg.checkpoint_iterations and saving:
             log_fn(f"[ITER {iteration}] Saving Checkpoint")
             save_checkpoint(f"{model_cfg.model_path}/chkpnt{iteration}.npz",
                             params, adam, aux, iteration, active_sh)
 
+    whole()
     if profiler is not None:
         _stop_profiler(profiler, profile_dir)
     if progress is not None:
         progress.close()
-    _write_history(model_cfg.model_path, history)
+    _write_history(model_cfg.model_path if main_rank else "", history)
     return params, aux, scene, history
 
 
 def _report(iteration, eval_state, scene, eval_cfg, eval_metrics,
             eval_render, bg, active_sh, history, tb_writer, model_cfg,
-            log_fn, device, stream_caps: bool) -> None:
+            log_fn, device, stream_caps: bool,
+            main_rank: bool = True) -> None:
     """The training report: L1 and PSNR over the full test set and 5 fixed
     train views, each split on its own clip-free layout (stream backend;
     the padded backends evaluate on ``eval_cfg`` as it is); shape
@@ -473,7 +656,7 @@ def _report(iteration, eval_state, scene, eval_cfg, eval_metrics,
                 "scene/opacity_histogram",
                 torch.sigmoid(e_params.opacity[al, 0]).cpu().numpy(),
                 iteration)
-        if model_cfg.model_path:
+        if model_cfg.model_path and main_rank:
             _dump_val_image(model_cfg.model_path, iteration, eval_render,
                             e_params, e_aux, scene, bg, active_sh, device,
                             render_n=e_rn, instance_cap=test_cap,
