@@ -45,7 +45,7 @@ reader). Phases, one JSON line each:
    ``composite_stream_bwd_plain`` with a random ``g_out`` and a nonzero
    ``g_tfin`` made from ``--seed``, on one full test view at the reference
    layout, a 64-tile subset of it, and random streams on 16×16 and 32×16
-   tiles: per attribute row max |kernel − plain| ≤ 1e-5 · max |plain|,
+   tiles: per attribute row max |kernel − plain| ≤ 2e-6 · max |plain|,
    exact zeros outside the segments and in rows 9..15, and two launches
    equal to the bit;
 6b. fast_vs_plain: the fast-math kernels (B3f in ``csrc/stream_fwd.cu``,
@@ -58,7 +58,7 @@ reader). Phases, one JSON line each:
 6c. padded_vs_plain: B4 (``csrc/padded_fwd.cu``) and B5
    (``csrc/padded_bwd.cu``) against ``composite_padded_plain`` /
    ``composite_padded_bwd_plain`` on random tables at 16×16 and 32×16:
-   within 2e-4 max abs and 1e-5 per plane, exact zeros in invalid and
+   within 2e-4 max abs and 2e-6 per plane, exact zeros in invalid and
    uncounted slots (B5 writes them itself), two B5 launches equal to the
    bit;
 7. train_resume, the training path at the trained size: a COLMAP dataset
@@ -229,12 +229,44 @@ reader). Phases, one JSON line each:
    ``--gauss_parallel 1``, and
    from phase 13's grow checkpoint 20 of ``--grow_dir --data_parallel
    4``; every run's losses and gradients finite;
+18. mvs, the MVS branch (``mvs/``) at the model's defaults (32 depths,
+   features (16, 32, 32), 2 sources) on 640×480 synthetic groups (DTU's
+   1600×1200 under the CLI's ``--max_dim 640``: 19,200 Gaussians a group,
+   a [32, 32, 120, 160] cost volume a source): (a) one group's train-step
+   loss and parameter gradients with weights from ``--seed``, through B1
+   and B2, against the same computation on a CPU copy (the plain
+   versions): the predicted Gaussians within 1e-5 and every gradient
+   within 1e-4 of their leaf's largest magnitude (the CNNs' library sums
+   differ by device), the image within 5e-4 max abs (the two devices
+   preprocess in other roundings, and an entry's alpha crossing 1/255
+   moves a pixel by up to T·|rgb|/255), and B1 on the card's projected
+   Gaussians within 2e-4 of its plain version; the recipe's tile need and
+   clipped tile slots printed; (b) ``cli/mvs_train.py
+   --synthetic 16 --width 640 --height 480 --iterations 500 --eval_every
+   250`` (500 of the recipe's 2,000 iterations) as written, then under a
+   flat budget of 512 tiles a Gaussian with room for all (the JAX
+   package's eval widening): one B2 launch a step, no fast-mode kernel and
+   finite losses in both; the learning criteria (the last logged
+   loss below 0.7 × the first, the JAX package's test's criterion; the
+   last eval PSNR not below the first) and finite weights held on the
+   second and reported on the first, where the recipe's budget clips most
+   tiles, the scales run away and the model does not learn (ROADMAP C14);
+   the step medians, launches and peak memory printed;
+19. viewer, the network viewer (``viewer/``): (a) the port's server on a
+   free loopback port, pumped as the loop pumps it, and a client thread
+   asking for 5 orbit frames of the retained model at 1237×822: each
+   frame's bytes equal to ``render_to_bytes`` of a direct render of the
+   same camera, the verify string back; ms a frame beside the render's;
+   (b) ``cli/train.py --ip 127.0.0.1 --port <free>`` for 20 steps from
+   phase 7's checkpoint, a client asking for a frame with ``train=True``
+   at each step: every step and every frame arrives;
 
 then the ``kernels`` line (B1, B2, B3f, B3b, B4 and B5, with their launches
 on the main paths: the render slice of phase 4, the two arms of phase 7
 (not its control), phase 8, phase 9, phase 9b, phase 11's renders and
 training, phase 12's dataset, phase 13's three arms, phase 14's render CLI
-and full_eval, phase 15's render and phase 17, each counted from zero)
+and full_eval, phase 15's render, phase 17 and phases 18 and 19, each
+counted from zero)
 and last ``{"ok": true, "device": {...}}``. A failed check raises after the
 measurements and exits non-zero without printing those two lines; without a
 card it exits non-zero before printing any result. It writes nothing into
@@ -278,7 +310,11 @@ MMA_FLOPS_PER_PAIR = 4 * 2048 / 64
 # only, plus the cull's box test (six f32 operations) on each lane of each
 # live warp-step
 BOX_TEST_OPS = 6 * 32
-BWD_REL = 1e-5                # backward kernel vs plain, per row, relative
+# exact backward kernel vs plain, per row, relative: B2 and B5 do their
+# plain versions' arithmetic but for the order of the sum over a tile's
+# pixels (ROADMAP C13); measured up to 1.56e-6 on a full view (1e-5
+# before, when B2 kept a running prefix that the plain version compensated)
+BWD_REL = 2e-6
 FAST_TOL = 2e-3               # fast kernels vs plain: the JAX package's
 FAST_REL = 5e-3               # fast-mode contract (tests/test_fast_math.py)
 ARM_PSNR = 0.1                # fast vs exact arm, final PSNR, dB
@@ -374,6 +410,26 @@ PAR_FAST_REL = 1e-3           # the fast-mode contract
 # comparisons run under torch.use_deterministic_algorithms, where one step
 # run twice must agree to the bit
 PAR_EXACT_REL = 3e-6
+# phase 18: the MVS branch at the model's defaults (32 depths, features
+# (16, 32, 32), 2 sources) on DTU's working size under the CLI's
+# --max_dim 640; its train run cut to 500 of 2,000 iterations
+MVS_SIZE = (640, 480)
+MVS_GROUPS = 16
+MVS_ITERS = 500
+MVS_EVAL_EVERY = 250
+MVS_IMG_TOL = 2e-4            # B1 vs plain on the same inputs, max abs
+# card vs CPU copy end to end, image max abs: the two preprocess in other
+# roundings, and an entry's alpha crossing 1/255 moves a pixel by up to
+# T·|rgb|/255 (measured 2.9e-4, one pixel over 1e-4, on an NVIDIA H100
+# 80GB HBM3 at 700 W)
+MVS_IMG_E2E = 5e-4
+MVS_OUT_REL = 1e-5            # predicted Gaussians, per output's largest
+MVS_GRAD_REL = 1e-4           # card vs CPU copy, per leaf's largest |g|
+MVS_LOSS_DROP = 0.7           # last logged loss < 0.7 × the first
+# phase 19: the network viewer
+VIEWER_FRAMES = 5
+VIEWER_STEPS = 20
+VIEWER_TRAIN_SIZE = (640, 426)  # the frames asked for while training
 TRAIN_FLAGS = ["--eval", "--resolution", "1",
                "--tile_w", "32", "--tile_h", "16",
                "--max_tiles_per_gaussian", "512",
@@ -569,6 +625,7 @@ def bwd_vs_plain(view_stream, cam, subset, tiles_x, cfg, seed, faults):
         cases[f"random_{tw}x{th}"] = bwd_check(
             a, out, tfin, *cotangents(48, tw * th, seed + 3, dev))
     emit({"phase": "bwd_vs_plain", "tolerance_rel": BWD_REL,
+          "max_rel_gap": max(max(c["rel_gap"]) for c in cases.values()),
           "cases": cases})
     for name, c in cases.items():
         if (max(c["rel_gap"]) > BWD_REL or not c["zeros_outside"]
@@ -704,7 +761,9 @@ def padded_vs_plain(seed, faults):
             s["tiles_x"], tw, 16]
         cases[f"random_{tw}x16"] = padded_check(args, seed + 5)
     emit({"phase": "padded_vs_plain", "tolerance": TOL,
-          "tolerance_rel": BWD_REL, "cases": cases})
+          "tolerance_rel": BWD_REL,
+          "max_rel_gap": max(max(c["bwd_rel_gap"]) for c in cases.values()),
+          "cases": cases})
     for name, c in cases.items():
         if (c["fwd_max_abs"] > TOL or max(c["bwd_rel_gap"]) > BWD_REL
                 or not c["zeros_dead"] or not c["deterministic"]):
@@ -1065,6 +1124,8 @@ def train_resume(tmp, data, seed, faults, libs):
                                   ("b2", "b3f", "b3b")},
                       "b1_ms_on_train_views": float(np.mean(
                           [r["b1"]["ms"] for r in rows])),
+                      "b2_max_rel_gap": max(max(r["b2"]["rel_gap"])
+                                            for r in rows),
                       "fast_minus_exact_psnr": gaps,
                       "step_ms_median_untraced_fast":
                           fast_rec["step_ms_median_untraced"]})
@@ -2750,6 +2811,358 @@ def parallel_modes(tmp, data, flagship, params, test_cams, single_ms, smi,
 
 
 
+def mvs_phase(tmp, seed, faults):
+    """Phase 18: the MVS branch at the model's defaults on 640×480 groups.
+    (a) one group's train step through B1 and B2 against the same
+    computation on a CPU copy (the plain versions), and B1 against its
+    plain version on the card's projected Gaussians; (b) ``cli/mvs_train.py``
+    for MVS_ITERS iterations as the JAX recipe has it (its learning
+    criteria reported: ROADMAP C14) and under a flat budget of 512 tiles a
+    Gaussian (held). Returns the phase's launches, counted from zero (the
+    CPU copy and the comparison's launch not counted)."""
+    import copy
+
+    import torch
+
+    from mvs_gaussian_splatting_tpu_torch.cli.mvs_train import \
+        main as mvs_main
+    from mvs_gaussian_splatting_tpu_torch.mvs import train as mt
+    from mvs_gaussian_splatting_tpu_torch.mvs.dataset import \
+        make_synthetic_groups
+    from mvs_gaussian_splatting_tpu_torch.mvs.model import MVSGaussianModel
+    from mvs_gaussian_splatting_tpu_torch.ops.preprocess import preprocess
+    from mvs_gaussian_splatting_tpu_torch.ops.rasterize import rasterize
+    from mvs_gaussian_splatting_tpu_torch.utils.losses import l1_loss, ssim
+    t0 = time.time()
+    reset_launches()
+    width, height = MVS_SIZE
+    group = make_synthetic_groups(n_groups=1, width=width, height=height,
+                                  seed=seed, device="cuda")[0]
+    model = MVSGaussianModel(seed=seed).cuda()
+    cpu_model = copy.deepcopy(model).cpu()
+    cfg = mt.MVSConfig()
+    recipe = mt.raster_config("cuda")
+
+    def forward_backward(m, device):
+        """The train step's loss on the group: (loss, image, parameter
+        gradients, overflow counters, the predicted Gaussians)."""
+        batch = mt.group_to_batch(group, device)
+        m.zero_grad(set_to_none=True)
+        out = mt.apply_model(m, batch)
+        img, aux = mt.render_predicted(out, batch, width, height,
+                                       mt.raster_config(device, "stream"))
+        loss = ((1.0 - cfg.lambda_dssim) * l1_loss(img, batch.target_image)
+                + cfg.lambda_dssim * (1.0 - ssim(img, batch.target_image)))
+        loss.backward()
+        return (float(loss), img.detach().cpu(),
+                {k: p.grad.detach().cpu() for k, p in m.named_parameters()},
+                {k: int(aux[k]) for k in ("overflow_tiles",
+                                          "overflow_capacity")},
+                {k: v.detach().cpu() for k, v in out.items()})
+
+    before = read_launches()
+    t1 = time.time()
+    loss_g, img_g, grads_g, overflow, out_g = forward_backward(model, "cuda")
+    torch.cuda.synchronize()
+    card_s = time.time() - t1
+    one = {k: v - before[k] for k, v in read_launches().items()}
+    t1 = time.time()
+    loss_c, img_c, grads_c, _, out_c = forward_backward(cpu_model, "cpu")
+    cpu_s = time.time() - t1
+    # the composite on the same inputs: the card's projected Gaussians
+    # through B1 and through its plain version
+    before_cmp = read_launches()
+    with torch.no_grad():
+        batch = mt.group_to_batch(group, "cuda")
+        xyz_w, rot_w = mt.gaussians_to_world(
+            {k: v.cuda() for k, v in out_g.items()}, batch.w2c_ref)
+        p = preprocess(xyz_w, torch.sigmoid(out_g["opacity_logit"][:, 0]
+                                            .cuda()),
+                       batch.target_cam, width, height,
+                       scales=torch.exp(out_g["log_scaling"].cuda()),
+                       rotations=rot_w, colors_precomp=out_g["colors"].cuda(),
+                       tile_w=recipe.tile_w, tile_h=recipe.tile_h)
+        need = int(((p.rect_max - p.rect_min).clamp_min(0).prod(-1)
+                    * p.mask).sum())
+        img_k, _ = rasterize(p, width, height, torch.zeros(3, device="cuda"),
+                             recipe)
+        img_p, _ = rasterize(type(p)(*[a.cpu() for a in p]), width, height,
+                             torch.zeros(3), mt.raster_config("cpu", "stream"))
+    compared = {k: v - before_cmp[k] for k, v in read_launches().items()}
+    grad_gaps = {k: float((grads_g[k] - grads_c[k]).abs().max())
+                 / max(float(grads_c[k].abs().max()), 1e-30)
+                 for k in grads_c}
+    out_gaps = {k: float((out_g[k] - out_c[k]).abs().max())
+                / max(float(out_c[k].abs().max()), 1e-30) for k in out_c}
+    img_e2e = float((img_g - img_c).abs().max())
+    img_gap = float((img_k.cpu() - img_p).abs().max())
+    rec_a = {"gaussians": out_g["xyz_cam"].shape[0], "size": [width, height],
+             "loss": loss_g, "loss_cpu": loss_c,
+             "image_max_abs": img_e2e, "image_tolerance": MVS_IMG_E2E,
+             "image_pixels_over_1e-4": int(((img_g - img_c).abs() > 1e-4)
+                                           .sum()),
+             "composite_max_abs": img_gap,
+             "composite_tolerance": MVS_IMG_TOL,
+             "gaussians_rel_max": max(out_gaps.values()),
+             "gaussians_tolerance": MVS_OUT_REL, "gaussians_rel": out_gaps,
+             "grad_rel_max": max(grad_gaps.values()),
+             "grad_rel_worst": max(grad_gaps, key=grad_gaps.get),
+             "grad_tolerance": MVS_GRAD_REL, "grad_rel": grad_gaps,
+             "tile_need": need, "overflow": overflow, "launches": one,
+             "card_seconds": round(card_s, 2),
+             "cpu_seconds": round(cpu_s, 2)}
+    if (img_e2e > MVS_IMG_E2E or img_gap > MVS_IMG_TOL
+            or max(out_gaps.values()) > MVS_OUT_REL
+            or max(grad_gaps.values()) > MVS_GRAD_REL
+            or not np.isfinite(loss_g) or one["stream_fwd"] != 1
+            or one["stream_bwd"] != 1 or one["stream_fwd_fast"]
+            or one["stream_bwd_fast"]):
+        faults.append(f"mvs one group, card vs CPU: {rec_a}")
+    del model, cpu_model, grads_g, grads_c
+
+    def train_cli(name, budget=None):
+        """``cli/mvs_train.py`` on MVS_GROUPS synthetic groups, under the
+        recipe's raster configuration or ``budget``."""
+        from unittest import mock
+        torch.cuda.reset_peak_memory_stats()
+        before = read_launches()
+        t1 = time.time()
+        argv = ["--synthetic", str(MVS_GROUPS), "--width", str(width),
+                "--height", str(height), "--iterations", str(MVS_ITERS),
+                "--eval_every", str(MVS_EVAL_EVERY), "--seed", str(seed),
+                "--model_path", os.path.join(tmp, name)]
+        with contextlib.ExitStack() as stack:
+            if budget is not None:
+                stack.enter_context(mock.patch.object(
+                    mt, "raster_config", lambda *a, **k: budget))
+            _, hist = mvs_main(argv)
+        torch.cuda.synchronize()
+        seconds = time.time() - t1
+        losses = [v for _, v in hist["loss"]]
+        evals = hist["psnr_eval"]
+        times = dict(hist["time"])
+        # 10-step windows with no eval in them
+        ms = [(times[i] - times[i - 10]) * 100.0 for i in sorted(times)
+              if i - 10 in times and not any(i - 10 < e <= i for e in evals)]
+        saved = mt.load_mvs_checkpoint(
+            os.path.join(tmp, name, "mvs_model.pt"), "cpu")
+        weights_finite = all(bool(torch.isfinite(v).all())
+                             for v in saved.state_dict().values())
+        ratio = losses[-1] / losses[0]
+        return {"iterations": MVS_ITERS, "groups": MVS_GROUPS,
+                "loss_first": losses[0], "loss_last": losses[-1],
+                "loss_ratio": ratio, "psnr_eval": evals,
+                "losses_finite": bool(np.isfinite(losses).all()),
+                "weights_finite": weights_finite,
+                "criteria": {
+                    f"loss_ratio_below_{MVS_LOSS_DROP}": ratio < MVS_LOSS_DROP,
+                    "last_psnr_not_below_first":
+                        evals[max(evals)] >= evals[min(evals)],
+                    "weights_finite": weights_finite},
+                "step_ms_median": float(np.median(ms)),
+                "step_ms_quartiles": [float(np.percentile(ms, 25)),
+                                      float(np.percentile(ms, 75))],
+                "launches": {k: v - before[k]
+                             for k, v in read_launches().items()},
+                "seconds": round(seconds, 1),
+                "peak_memory_bytes": torch.cuda.max_memory_allocated()}
+
+    def runs_its_kernels(rec):
+        run = rec["launches"]
+        return (rec["losses_finite"] and run["stream_bwd"] == MVS_ITERS
+                and run["stream_fwd"] >= MVS_ITERS
+                and not run["stream_fwd_fast"] and not run["stream_bwd_fast"])
+
+    # (b) the recipe as written: its tile budget clips most of the
+    # predicted Gaussians' tiles at this size, their scales run away and
+    # the model does not learn, its weights often overflowing to NaN
+    # (ROADMAP C14), so the learning criteria are reported, not held. The
+    # same CLI under the JAX package's eval budget (512 tiles a Gaussian,
+    # flat) holds them.
+    as_written = train_cli("mvs")
+    tiles = min(512, -(-width // recipe.tile_w) * -(-height // recipe.tile_h))
+    n = rec_a["gaussians"] * tiles
+    unclipped = train_cli("mvs_512", recipe._replace(
+        max_tiles_per_gaussian=tiles, tier_budgets=(), tier_fracs=(),
+        instance_cap=n + (-n) % 128))
+    if not runs_its_kernels(as_written):
+        faults.append(f"mvs training as written: {as_written}")
+    if not (runs_its_kernels(unclipped) and all(unclipped["criteria"]
+                                                .values())):
+        faults.append(f"mvs training, 512 tiles a Gaussian: {unclipped}")
+    launches = {k: v - compared[k] for k, v in read_launches().items()}
+    emit({"phase": "mvs", "one_group": rec_a, "train_as_written": as_written,
+          "train_512_tiles": unclipped, "launches": launches,
+          "seconds": round(time.time() - t0, 1)})
+    return launches
+
+
+def free_port():
+    import socket
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        return s.getsockname()[1]
+
+
+def viewer_phase(tmp, data, params, test_cams, seed, faults):
+    """Phase 19: the network viewer. (a) the port's server on loopback, a
+    client thread asking for VIEWER_FRAMES orbit frames of the retained
+    model at its full size, each frame's bytes held equal to a direct
+    render's; (b) ``cli/train.py --ip`` for VIEWER_STEPS steps from phase
+    7's checkpoint, a client asking for a frame with ``train=True`` at each
+    step. Returns the phase's launches, counted from zero."""
+    import math
+    import threading
+
+    import torch
+
+    from mvs_gaussian_splatting_tpu_torch.cli.train import main as train_main
+    from mvs_gaussian_splatting_tpu_torch.models.gaussians import GaussianAux
+    from mvs_gaussian_splatting_tpu_torch.ops.render import render
+    from mvs_gaussian_splatting_tpu_torch.train.config import (
+        ModelConfig, PipelineConfig)
+    from mvs_gaussian_splatting_tpu_torch.train.loop import (
+        _gui_pump, eval_config, eval_instance_cap, raster_config_from_pipe)
+    from mvs_gaussian_splatting_tpu_torch.utils import graphics
+    from mvs_gaussian_splatting_tpu_torch.viewer import network_gui
+    from mvs_gaussian_splatting_tpu_torch.viewer.client import (ViewerClient,
+                                                                orbit_camera)
+    t0 = time.time()
+    dev = torch.device("cuda")
+    reset_launches()
+    n = params.xyz.shape[0]
+    z = torch.zeros(n, device=dev)
+    aux = GaussianAux(alive=torch.ones(n, dtype=torch.bool, device=dev),
+                      max_radii2d=z, xyz_grad_accum=z, denom=z)
+    w, h = test_cams[0].width, test_cams[0].height
+    fovx, fovy = float(test_cams[0].fovx), float(test_cams[0].fovy)
+    centre = test_cams[0].camera_center.astype(np.float64)
+    target = params.xyz.median(0).values.cpu().numpy().astype(np.float64)
+    radius = float(np.linalg.norm((centre - target)[[0, 2]]))
+    height = float(centre[1] - target[1])
+    poses = [orbit_camera(2 * math.pi * i / VIEWER_FRAMES, radius, height,
+                          target) for i in range(VIEWER_FRAMES)]
+    eval_cfg = eval_config(raster_config_from_pipe(PipelineConfig()))
+    rc = eval_cfg._replace(instance_cap=eval_instance_cap(n, eval_cfg))
+    bg = torch.zeros(3, device=dev)
+    model_cfg = ModelConfig(source_path=MODEL)
+
+    def client(run, result):
+        try:
+            run(result)
+        except Exception as e:   # noqa: BLE001 - a fault below
+            result["error"] = repr(e)
+
+    # (a) the server pumped as the loop pumps it, until the client is done
+    network_gui.init("127.0.0.1", 0)
+    port = network_gui.listener.getsockname()[1]
+
+    def ask(result):
+        with ViewerClient("127.0.0.1", port, timeout=120.0) as c:
+            result["frames"] = []
+            for R, T in poses:
+                t1 = time.perf_counter()
+                rgb, verify = c.request(w, h, R, T, fovx, fovy, train=False)
+                result["frames"].append(
+                    (rgb, verify, (time.perf_counter() - t1) * 1e3))
+
+    result = {}
+    th = threading.Thread(target=client, args=(ask, result), daemon=True)
+    th.start()
+    deadline = time.monotonic() + 300.0
+    while th.is_alive() and time.monotonic() < deadline:
+        _gui_pump(model_cfg, params, aux, eval_cfg, 3, 0, 1)
+        time.sleep(0.001)
+    th.join(timeout=60.0)
+    network_gui.close()
+    frames = result.get("frames", [])
+    rows = []
+    for (R, T), (rgb, verify, ms) in zip(poses, frames):
+        # the camera the server builds from the request, unflipped: the
+        # matrices in float64, as they come out of the JSON, so that its
+        # campos is numpy's float64 inverse of the same array
+        w2v = graphics.world_to_view(R, T).astype(np.float64)
+        proj = graphics.projection_matrix(0.01, 100.0, fovx, fovy)
+        view = network_gui.MiniCam(w, h, fovy, fovx, 0.01, 100.0,
+                                   np.ascontiguousarray(w2v.T),
+                                   np.ascontiguousarray((proj @ w2v).T)
+                                   ).view(dev)
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        with torch.no_grad():
+            img = render(view, w, h, params, bg, sh_degree=3,
+                         alive=aux.alive, raster_config=rc)["render"]
+        want = np.asarray(network_gui.render_to_bytes(img)).reshape(h, w, 3)
+        render_ms = (time.perf_counter() - t1) * 1e3
+        rows.append({"frame_ms": ms, "render_ms": render_ms,
+                     "bytes_equal": bool(np.array_equal(rgb, want)),
+                     "max": int(rgb.max()), "verify": verify})
+    rec_a = {"size": [w, h], "frames": rows, "error": result.get("error"),
+             "frame_ms_mean": float(np.mean([r["frame_ms"] for r in rows]))
+             if rows else None,
+             "render_ms_mean": float(np.mean([r["render_ms"]
+                                              for r in rows]))
+             if rows else None}
+    if (len(rows) != VIEWER_FRAMES or th.is_alive() or any(
+            not r["bytes_equal"] or r["max"] <= 10 or r["verify"] != MODEL
+            for r in rows)):
+        faults.append(f"viewer frames: {rec_a}")
+
+    # (b) training while serving: cli/train.py --ip, one frame a step
+    port = free_port()
+    dataset = data["dataset"]
+
+    def watch(result):
+        sock_deadline = time.monotonic() + 300.0
+        while True:
+            try:
+                c = ViewerClient("127.0.0.1", port, timeout=120.0)
+                break
+            except OSError:
+                if time.monotonic() > sock_deadline:
+                    raise
+                time.sleep(0.02)
+        with c:
+            result["frames"] = []
+            for i in range(VIEWER_STEPS):
+                R, T = poses[i % len(poses)]
+                rgb, verify = c.request(*VIEWER_TRAIN_SIZE, R, T, fovx,
+                                        fovx, train=True)
+                result["frames"].append((rgb.shape, int(rgb.max()), verify))
+
+    result = {}
+    th = threading.Thread(target=client, args=(watch, result), daemon=True)
+    th.start()
+    t1 = time.time()
+    before_train = read_launches()
+    _, _, _, hist = train_main(
+        ["-s", dataset, "-m", os.path.join(tmp, "viewer_train"),
+         "--start_checkpoint", data["checkpoint"],
+         "--iterations", str(RESUME_ITER + VIEWER_STEPS),
+         "--test_iterations", "0", "--log_every", "1", "--seed", str(seed),
+         *TRAIN_FLAGS, "--ip", "127.0.0.1", "--port", str(port)])
+    torch.cuda.synchronize()
+    th.join(timeout=60.0)
+    losses = [v for _, v in hist["loss"]]
+    got = result.get("frames", [])
+    rec_b = {"steps": len(losses), "frames": len(got),
+             "finite": bool(np.isfinite(losses).all()),
+             "error": result.get("error"),
+             "launches": {k: v - before_train[k]
+                          for k, v in read_launches().items()},
+             "seconds": round(time.time() - t1, 1)}
+    if (len(losses) != VIEWER_STEPS or len(got) != VIEWER_STEPS
+            or th.is_alive() or not rec_b["finite"] or any(
+                shape != VIEWER_TRAIN_SIZE[::-1] + (3,) or mx <= 10
+                or verify not in (dataset, os.path.abspath(dataset))
+                for shape, mx, verify in got)):
+        faults.append(f"viewer while training: {rec_b}")
+    launches = read_launches()
+    emit({"phase": "viewer", "orbit": rec_a, "train_ip": rec_b,
+          "launches": launches, "seconds": round(time.time() - t0, 1)})
+    return launches
+
+
 def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--seed", type=int, default=0,
@@ -3072,6 +3485,9 @@ def main(argv=None):
         parallel = parallel_modes(tmp, data, flagship, params, test_cams,
                                   resume["step_ms_fast"], smi, args.seed,
                                   faults)
+        mvs = mvs_phase(tmp, args.seed, faults)
+        viewer = viewer_phase(tmp, data, params, test_cams, args.seed,
+                              faults)
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
     # 10. sections: the split, the SASS loop and the issue-rate floor
@@ -3133,7 +3549,7 @@ def main(argv=None):
              "dataset": flagship["launches"],
              **{f"grow_resume_{k}": v for k, v in grow.items()},
              **chain, "compress_render": compressed["launches"],
-             "parallel_modes": parallel}
+             "parallel_modes": parallel, "mvs": mvs, "viewer": viewer}
     totals = {k: sum(p[k] for p in paths.values()) for k in KERNELS}
     emit({"phase": "main_path_launches", "paths": paths, "totals": totals,
           "seconds_total": round(time.time() - t_start, 1)})

@@ -16,6 +16,10 @@ over the ranks that ``torchrun`` starts, one per device::
         -s <scene> -m <out> --data_parallel 4
 
 Each rank trains on ``cuda:LOCAL_RANK``; rank 0 writes the model.
+
+``--ip HOST --port P`` opens the network viewer's listener (rank 0): a
+SIBR remote viewer, or ``cli/view.py`` of either package, can then watch
+the run and pause it (``viewer/network_gui.py``).
 """
 
 from __future__ import annotations
@@ -31,6 +35,7 @@ from ..train.config import (ModelConfig, OptimizationConfig, PipelineConfig,
                             TrainRunConfig)
 from ..train.loop import train
 from ..utils.system import seed_everything
+from ..viewer import network_gui
 from .args import build_parser, extract
 
 
@@ -52,9 +57,6 @@ def main(argv=None):
     why = tile_limit(args.tile_w, args.tile_h)
     if why:
         parser.error(f"--tile_w {args.tile_w} --tile_h {args.tile_h}: {why}")
-    if args.ip:
-        raise NotImplementedError("the network viewer (--ip) is not ported "
-                                  "(ROADMAP A14)")
     model_cfg = extract(ModelConfig, args)
     opt_cfg = extract(OptimizationConfig, args)
     pipe_cfg = extract(PipelineConfig, args)
@@ -67,9 +69,14 @@ def main(argv=None):
     device = args.device
     if device == "cuda" and multihost.world_size() > 1:
         device = str(multihost.device())
-    with torch.autograd.set_detect_anomaly(args.detect_anomaly):
-        result = train(model_cfg, opt_cfg, pipe_cfg, run_cfg,
-                       device=device, profile_dir=args.profile_dir)
+    if args.ip and multihost.rank() == 0:
+        network_gui.init(args.ip, args.port)
+    try:
+        with torch.autograd.set_detect_anomaly(args.detect_anomaly):
+            result = train(model_cfg, opt_cfg, pipe_cfg, run_cfg,
+                           device=device, profile_dir=args.profile_dir)
+    finally:
+        network_gui.close()
     print("\nTraining complete.")
     return result
 

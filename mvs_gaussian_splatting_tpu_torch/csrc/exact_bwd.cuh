@@ -9,27 +9,38 @@
 // column e = base(t) + k and reads and writes that column.
 //
 // Per pixel, with T_k the transmittance before entry k, w_k = alpha_k T_k,
-// g.v = sum_c g_out_c v_c and the inclusive prefix
-// S_k = sum_{j<=k} w_j g.rgb_j,
-//   dalpha_k = g.rgb_k T_k - (g.out - S_k + g_tfin T_fin) / (1 - alpha_k)
-// for an included entry, 0 otherwise (one correctly rounded division; the
-// plain versions, as the JAX expression, divide the two terms apart).
+// g.v = sum_c g_out_c v_c and the suffix behind entry k
+// R_k = sum_{j>k} w_j g.rgb_j + T_fin g.bg,
+//   dalpha_k = g.rgb_k T_k - (R_k + g_tfin T_fin) / (1 - alpha_k)
+// for an included entry, 0 otherwise (one correctly rounded division). R_k
+// is not read as
+// g.out minus the prefix S_k = sum_{j<=k} w_j g.rgb_j: out is the
+// forward's running f32 sum, whose rounding the difference keeps while R_k
+// falls far below it, and the division by 1 - alpha_k (down to 0.01)
+// magnifies it. A first
+// walk of the segment takes the pixel's compensated (Kahan) total of
+// w_j g.rgb_j, the second its compensated prefix, and
+//   R_k + g_tfin T_fin = ((total - S_k) + (comp_k - tcomp))
+//                        + (T_fin g.bg + g_tfin T_fin),
+// every operation pinned with __f*_rn so that no FMA contraction drops a
+// compensation, in the order of the plain version
+// (ops/stream.py:composite_stream_bwd_plain; ROADMAP C13).
 // Through alpha = min(0.99, op e^power): dop = dalpha e^power and
 // dpower = dalpha op e^power where op e^power < 0.99, both 0 on the clamp;
 // with (dx, dy) the entry's centre minus the pixel's,
 //   d(x, y) = -dpower (a dx + b dy, c dy + b dx),
 //   d(conic a, b, c) = -dpower (dx^2 / 2, dx dy, dy^2 / 2),
 //   drgb_c = g_out_c w.
-// The replay takes the forward's include and terminate decisions from the
+// Both walks take the forward's include and terminate decisions from the
 // same inline functions (stream_common.cuh: entry_alpha, transmit<false>):
-// if one differed, g.out - S_k would stop matching the saved out and the
-// gradient would go wrong without any NaN. Only the gradient's arithmetic
-// is free, within the exact mode's 1e-5 of row scale.
+// if one differed, the gradient would be that of another image, without
+// any NaN. Only the sum over the pixels is taken in another order than the
+// plain version's.
 //
 // What bounds it on an H100: issued instructions. Each live (entry, warp)
-// step costs the replay (~35 instructions with the exact expf), the
-// gradient (~30, a division among them) and the sum over the warp's 32
-// pixels, while each entry is read once and written once for the whole
+// step costs two replays (~35 instructions each with the exact expf), the
+// gradient (~35, a division among them) and the sum over the warp's 32
+// pixels, while each entry is read twice and written once for the whole
 // tile. What the design does about it:
 //   - B1's compact 8 x 4 warp blocks and per-warp cull (stream_common.cuh:
 //     thread_pixel, warp_rect, cull_box, box_hits), row-order warps where
@@ -120,22 +131,97 @@ __device__ __forceinline__ int summed_row(int lane) {
   return real && !(lane & 1) ? pos : -1;
 }
 
-// Threads and dynamic shared memory of a tile's CTA: the two stage buffers
-// and the warps' partials [warps][kBatch][kRows].
+// Per-pixel values the walks keep in shared memory rather than in
+// registers, which they have none to spare for at 40 a thread (B5's slots
+// spilled with them): g_out; for the gradient the total, its compensation
+// and T_fin g.bg + g_tfin T_fin; and the gradient walk's compensated
+// prefix. A thread reads and writes only its own block of kPixelConsts
+// words, at immediate offsets from one address; the odd stride keeps a
+// warp's accesses free of bank conflicts.
+enum PixelConst { kGR, kGG, kGB, kTotal, kTotalComp, kTail, kPrefix, kComp };
+constexpr int kPixelConsts = 9;
+
+// Threads and dynamic shared memory of a tile's CTA: the two stage buffers,
+// the warps' partials [warps][kBatch][kRows] and the per-pixel values.
 __host__ __device__ __forceinline__ size_t smem_bytes(int threads) {
-  return sizeof(float) *
-         (2 * kBatch * gs::kSlot + (threads / 32) * kBatch * kRows);
+  return sizeof(float) * (2 * kBatch * gs::kSlot +
+                          (threads / 32) * kBatch * kRows +
+                          kPixelConsts * threads);
+}
+
+// total + x, compensated: the true sum is total - comp.
+__device__ __forceinline__ void kahan_add(float& total, float& comp,
+                                          float x) {
+  const float term = __fsub_rn(x, comp);
+  const float tot = __fadd_rn(total, term);
+  comp = __fsub_rn(__fsub_rn(tot, total), term);
+  total = tot;
+}
+
+// The pixel's compensated total of w g.rgb over the segment (the first
+// walk): the gradient walk's replay without its gradient, on the same
+// staging, its first batch already copied into stage buffer 0. Leaves every
+// copy landed and every thread past its reads of the stage.
+template <class Slots>
+__device__ __forceinline__ void segment_total(
+    const Slots& slots, float* stage, long long base, int count, int tid,
+    int threads, const gs::Rect& rect, float px, float py,
+    const volatile float* my, bool valid, float& total, float& comp) {
+  float trans = valid ? 1.0f : 0.0f;
+  for (int b0 = 0, buf = 0; b0 < count; b0 += kBatch, buf ^= 1) {
+    const int n = min(kBatch, count - b0);
+    float* batch = stage + buf * kBatch * gs::kSlot;
+    gs::stage_wait();
+    for (int i = tid; i < n; i += threads) {
+      slots.fix(batch + i * gs::kSlot);
+      gs::stage_box(batch + i * gs::kSlot);
+    }
+    if (__syncthreads_count(trans > 0.0f) == 0) break;
+    for (int i = tid; i < kBatch && b0 + kBatch + i < count; i += threads)
+      slots.stage(stage + ((buf ^ 1) * kBatch + i) * gs::kSlot,
+                  base + b0 + kBatch + i);
+    gs::stage_commit();
+    const float4* e4 = reinterpret_cast<const float4*>(batch);
+    bool live = false;
+    for (int k = 0; k < n; ++k, e4 += 3) {
+      if ((k & 7) == 0) live = __any_sync(kAll, trans > 0.0f);
+      const float4 geo = e4[0];  // x, y, hx, hy
+      if (live && gs::box_hits(rect, geo)) {  // warp-uniform
+        const float4 con = e4[1];  // conic a, b, c, opacity
+        gs::Entry e;
+        const bool contrib = gs::entry_alpha(geo.x, geo.y, con.x, con.y,
+                                             con.z, con.w, px, py, e);
+        const float next = gs::transmit<false>(trans, e.alpha);
+        if (contrib && next < gs::kMinTransmittance) {
+          trans = 0.0f;
+        } else if (contrib) {
+          const float4 rgb = e4[2];
+          const float g_dot_rgb = __fadd_rn(
+              __fadd_rn(__fmul_rn(my[kGR], rgb.x), __fmul_rn(my[kGG], rgb.y)),
+              __fmul_rn(my[kGB], rgb.z));
+          kahan_add(total, comp,
+                    __fmul_rn(__fmul_rn(e.alpha, trans), g_dot_rgb));
+          trans = next;
+        }
+      }
+    }
+  }
+  gs::stage_wait();
+  __syncthreads();
 }
 
 template <class Slots, bool kParts>
 __global__ void __maxnreg__(40) exact_bwd_kernel(
     const Slots slots, const long long* __restrict__ order,
-    const float* __restrict__ out, const float* __restrict__ final_t,
+    const float* __restrict__ bg, const float* __restrict__ final_t,
     const float* __restrict__ g_out, const float* __restrict__ g_tfin,
     int tiles_x, int tile_w, int tile_h) {
   extern __shared__ float4 smem4[];
   float* stage = reinterpret_cast<float*>(smem4);  // [2][kBatch][kSlot]
   float* partial = stage + 2 * kBatch * gs::kSlot;  // [warps][kBatch][kRows]
+  // volatile: read where the walks need them, not hoisted into registers
+  volatile float* my = partial + (blockDim.x >> 5) * kBatch * kRows +
+                       threadIdx.x * kPixelConsts;
   const int tid = threadIdx.x;
   const int threads = blockDim.x;
   const int n_warps = threads >> 5;
@@ -173,25 +259,33 @@ __global__ void __maxnreg__(40) exact_bwd_kernel(
     const float px = static_cast<float>(gx);
     const float py = static_cast<float>(gy);
     const gs::Rect rect = gs::warp_rect(valid, gx, gy);
+    const long long o =
+        static_cast<long long>(t) * tile_w * tile_h + ly * tile_w + lx;
+    for (int c = 0; c < 3; ++c) my[kGR + c] = valid ? g_out[3 * o + c] : 0.0f;
+    float total = 0.0f, tcomp = 0.0f;
+    GS_SEC_MARK(0);
+    segment_total(slots, stage, base, count, tid, threads, rect, px, py, my,
+                  valid, total, tcomp);
+    GS_SEC_MARK(6);
+    // the total, its compensation and T_fin g.bg + g_tfin T_fin, rounded
+    // as the plain version rounds them
+    my[kTotal] = total;
+    my[kTotalComp] = tcomp;
+    my[kTail] =
+        valid ? __fadd_rn(
+                    __fmul_rn(final_t[o],
+                              __fadd_rn(__fadd_rn(__fmul_rn(my[kGR], bg[0]),
+                                                  __fmul_rn(my[kGG], bg[1])),
+                                        __fmul_rn(my[kGB], bg[2]))),
+                    __fmul_rn(g_tfin[o], final_t[o]))
+              : 0.0f;
     const int row = summed_row(lane);  // -1: this lane stores nothing
     float* my_sums = partial + (tid >> 5) * kBatch * kRows + max(row, 0);
-
-    // g.out, g_tfin T_fin and the prefix S rounded as the plain versions
-    // round them: S runs over thousands of entries, and its rounding is
-    // what a pixel's dalpha is most sensitive to
-    float g_r = 0.0f, g_g = 0.0f, g_b = 0.0f, g_dot_out = 0.0f;
-    float tfin_term = 0.0f, prefix = 0.0f;
-    if (valid) {
-      const long long o =
-          static_cast<long long>(t) * tile_w * tile_h + ly * tile_w + lx;
-      g_r = g_out[3 * o];
-      g_g = g_out[3 * o + 1];
-      g_b = g_out[3 * o + 2];
-      g_dot_out = __fadd_rn(__fadd_rn(__fmul_rn(g_r, out[3 * o]),
-                                      __fmul_rn(g_g, out[3 * o + 1])),
-                            __fmul_rn(g_b, out[3 * o + 2]));
-      tfin_term = __fmul_rn(g_tfin[o], final_t[o]);
-    }
+    my[kPrefix] = 0.0f;
+    my[kComp] = 0.0f;
+    for (int i = tid; i < min(kBatch, count); i += threads)
+      slots.stage(stage + i * gs::kSlot, base + i);
+    gs::stage_commit();
     // T of the pixel, 0 once it is done (a masked lane is done from the
     // start): a done pixel then fails every T test and includes nothing
     float trans = valid ? 1.0f : 0.0f;
@@ -252,15 +346,24 @@ __global__ void __maxnreg__(40) exact_bwd_kernel(
           if (__any_sync(kAll, include)) {
             GS_SEC_COUNT(1);
             const float4 rgb = e4[2];
+            const float gr = my[kGR], gg = my[kGG], gb = my[kGB];
             const float w = include ? __fmul_rn(e.alpha, trans) : 0.0f;
             const float g_dot_rgb = __fadd_rn(
-                __fadd_rn(__fmul_rn(g_r, rgb.x), __fmul_rn(g_g, rgb.y)),
-                __fmul_rn(g_b, rgb.z));
-            if (include) prefix = __fadd_rn(prefix, __fmul_rn(w, g_dot_rgb));
-            const float dalpha = __fsub_rn(
-                __fmul_rn(g_dot_rgb, trans),
-                __fdiv_rn(__fadd_rn(__fsub_rn(g_dot_out, prefix), tfin_term),
-                          __fsub_rn(1.0f, e.alpha)));
+                __fadd_rn(__fmul_rn(gr, rgb.x), __fmul_rn(gg, rgb.y)),
+                __fmul_rn(gb, rgb.z));
+            if (include) {
+              float pr = my[kPrefix], cp = my[kComp];
+              kahan_add(pr, cp, __fmul_rn(w, g_dot_rgb));
+              my[kPrefix] = pr;
+              my[kComp] = cp;
+            }
+            const float suffix =
+                __fadd_rn(__fadd_rn(__fsub_rn(my[kTotal], my[kPrefix]),
+                                    __fsub_rn(my[kComp], my[kTotalComp])),
+                          my[kTail]);
+            const float dalpha =
+                __fsub_rn(__fmul_rn(g_dot_rgb, trans),
+                          __fdiv_rn(suffix, __fsub_rn(1.0f, e.alpha)));
             const bool slope = include && e.raw < gs::kMaxAlpha;
             const float dpower = slope ? __fmul_rn(dalpha, e.raw) : 0.0f;
             const float dpx = __fmul_rn(dpower, e.dx);
@@ -271,9 +374,9 @@ __global__ void __maxnreg__(40) exact_bwd_kernel(
                               __fmul_rn(dpx, e.dy),
                               __fmul_rn(dpy, e.dy),
                               slope ? __fmul_rn(dalpha, e.g) : 0.0f,
-                              __fmul_rn(g_r, w),
-                              __fmul_rn(g_g, w),
-                              __fmul_rn(g_b, w)};
+                              __fmul_rn(gr, w),
+                              __fmul_rn(gg, w),
+                              __fmul_rn(gb, w)};
             if (include) trans = next;
             sum = reduce9(m, lane);
           }
@@ -348,7 +451,7 @@ cudaError_t configure(int tile_w, int tile_h, BwdKernel<Slots>& kernel,
 // One CTA per tile on `stream`; returns cudaGetLastError(), or the refusal
 // of configure.
 template <class Slots>
-int launch(const Slots& slots, const long long* order, const float* out,
+int launch(const Slots& slots, const long long* order, const float* bg,
            const float* final_t, const float* g_out, const float* g_tfin,
            int n_tiles, int tiles_x, int tile_w, int tile_h, void* stream) {
   BwdKernel<Slots> kernel;
@@ -358,7 +461,7 @@ int launch(const Slots& slots, const long long* order, const float* out,
       configure<Slots>(tile_w, tile_h, kernel, threads, smem);
   if (err != cudaSuccess) return static_cast<int>(err);
   kernel<<<n_tiles, threads, smem, static_cast<cudaStream_t>(stream)>>>(
-      slots, order, out, final_t, g_out, g_tfin, tiles_x, tile_w, tile_h);
+      slots, order, bg, final_t, g_out, g_tfin, tiles_x, tile_w, tile_h);
   return static_cast<int>(cudaGetLastError());
 }
 

@@ -8,7 +8,8 @@
 // Inputs
 //   planes, rgb, valid, counts, geometry  as in padded_fwd.cu; order as in
 //   stream_bwd.cu;
-//   out [T, P, 3], final_T [T, P]   saved by the forward;
+//   bg [3] as in padded_fwd.cu; final_T [T, P] saved by the forward (its
+//   out is not read: exact_bwd.cuh sums the colour suffix itself);
 //   g_out [T, P, 3], g_tfin [T, P]  the cotangents.
 // Outputs, every slot written by the kernel (the caller need not zero them)
 //   gplanes [6, T, K]: d x, y, conic a, b, c, opacity;
@@ -62,7 +63,7 @@ struct PaddedGradSlots : gs::PaddedSlots {
 // [0, n_tiles) (int64): CTA b takes the tile order[b].
 extern "C" int gs_padded_bwd(const float* planes, const float* rgb,
                              const float* valid, const int* counts,
-                             const long long* order, const float* out,
+                             const long long* order, const float* bg,
                              const float* final_t, const float* g_out,
                              const float* g_tfin, float* gplanes, float* grgb,
                              int n_tiles, int k_cap, int tiles_x, int tile_w,
@@ -72,7 +73,7 @@ extern "C" int gs_padded_bwd(const float* planes, const float* rgb,
        k_cap},
       gplanes,
       grgb};
-  return launch(slots, order, out, final_t, g_out, g_tfin, n_tiles, tiles_x,
+  return launch(slots, order, bg, final_t, g_out, g_tfin, n_tiles, tiles_x,
                 tile_w, tile_h, stream);
 }
 

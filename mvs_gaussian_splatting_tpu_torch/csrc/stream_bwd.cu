@@ -11,7 +11,8 @@
 //
 // Inputs
 //   attrs, seg_start, counts, tile_ids, order  as in stream_fwd.cu;
-//   out [T, P, 3], final_T [T, P]   saved by the forward;
+//   bg [3] as in stream_fwd.cu; final_T [T, P] saved by the forward (its
+//   out is not read: exact_bwd.cuh sums the colour suffix itself);
 //   g_out [T, P, 3], g_tfin [T, P]  the cotangents.
 // Output
 //   gattrs [16, stride] f32, zeroed by the caller. For every entry a tile
@@ -52,13 +53,13 @@ struct StreamGradSlots : gs::StreamSlots {
 extern "C" int gs_stream_bwd(const float* attrs, long long stride,
                              const int* seg_start, const int* counts,
                              const int* tile_ids, const long long* order,
-                             const float* out, const float* final_t,
+                             const float* bg, const float* final_t,
                              const float* g_out, const float* g_tfin,
                              float* gattrs, int n_tiles, int tiles_x,
                              int tile_w, int tile_h, void* stream) {
   const StreamGradSlots slots{{attrs, stride, seg_start, counts, tile_ids},
                               gattrs};
-  return launch(slots, order, out, final_t, g_out, g_tfin, n_tiles, tiles_x,
+  return launch(slots, order, bg, final_t, g_out, g_tfin, n_tiles, tiles_x,
                 tile_w, tile_h, stream);
 }
 

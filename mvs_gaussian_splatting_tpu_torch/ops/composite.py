@@ -243,7 +243,7 @@ def composite_padded_bwd(planes, rgb, valid, counts, bg, tiles_x: int,
     with torch.cuda.device(planes.device):
         err = kernels.library().gs_padded_bwd(
             planes.data_ptr(), rgb.data_ptr(), valid.data_ptr(),
-            counts.data_ptr(), order.data_ptr(), out.data_ptr(),
+            counts.data_ptr(), order.data_ptr(), bg.data_ptr(),
             final_t.data_ptr(), g_out.data_ptr(), g_tfin.data_ptr(),
             gplanes.data_ptr(), grgb.data_ptr(), t, k, tiles_x, tile_w,
             tile_h, torch.cuda.current_stream(planes.device).cuda_stream)

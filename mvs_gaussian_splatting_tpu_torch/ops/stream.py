@@ -33,6 +33,8 @@ CPU tensors. Two modes, as in the JAX package:
 
 from __future__ import annotations
 
+from typing import NamedTuple
+
 import numpy as np
 import torch
 
@@ -244,8 +246,10 @@ def composite_stream_bwd(attrs, seg_start, counts, bg, tile_ids,
         err = getattr(kernels.library(), name)(
             attrs.data_ptr(), attrs.shape[1], seg_start.data_ptr(),
             counts.data_ptr(), tile_ids.data_ptr(), order.data_ptr(),
-            out.data_ptr(), final_t.data_ptr(), g_out.data_ptr(),
-            g_tfin.data_ptr(), gattrs.data_ptr(), t, tiles_x, tile_w, tile_h,
+            # B2 sums the colour suffix itself: it reads bg, not out
+            (out if fast else bg).data_ptr(), final_t.data_ptr(),
+            g_out.data_ptr(), g_tfin.data_ptr(), gattrs.data_ptr(), t,
+            tiles_x, tile_w, tile_h,
             torch.cuda.current_stream(attrs.device).cuda_stream)
     if err != 0:
         raise RuntimeError(f"{name} launch failed: CUDA error {err}")
@@ -318,38 +322,50 @@ def composite_stream_plain(attrs, seg_start, counts, bg, tile_ids,
     return out, trans
 
 
-def composite_stream_bwd_plain(attrs, seg_start, counts, bg, tile_ids,
-                               tiles_x: int, tile_w: int, tile_h: int, out,
-                               final_t, g_out, g_tfin, *,
-                               count_visits: bool = False):
-    """Plain PyTorch version of :func:`composite_stream_bwd`, same signature.
+def _kahan_add(total, comp, x, include):
+    """One step of a compensated (Kahan) sum where ``include``: the true sum
+    is ``total - comp``. Returns (total, comp)."""
+    term = torch.where(include, x - comp, 0.0)
+    tot = total + term
+    return tot, torch.where(include, (tot - total) - term, comp)
 
-    Replays the forward entry by entry, vectorised over tiles and pixels,
-    with the kernel's arithmetic in the kernel's order, but for two sums:
-    the sum over a tile's pixels is taken in another order, and the running
-    prefix of w·(g·rgb) is compensated (Kahan), which B2's running sum is
-    not. ``count_visits=True`` also
-    returns the (entry, pixel) pairs visited, as
-    :func:`composite_stream_plain` counts them."""
+
+class _Replayed(NamedTuple):
+    """One step of the replayed forward: the entries' columns [T], which
+    tiles are in their segment [T] and which pixels live [T, P], and each
+    entry's terms at each pixel ([T, 1] attributes, [T, P] terms)."""
+    col: torch.Tensor
+    in_seg: torch.Tensor
+    live: torch.Tensor
+    ca: torch.Tensor
+    cb: torch.Tensor
+    cc: torch.Tensor
+    op: torch.Tensor
+    rgb: tuple
+    dx: torch.Tensor
+    dy: torch.Tensor
+    g: torch.Tensor
+    raw: torch.Tensor
+    one_minus: torch.Tensor
+    include: torch.Tensor
+    trans: torch.Tensor       # T before the entry
+    w: torch.Tensor           # alpha T
+
+
+def _bwd_replay(attrs, seg_start, counts, tile_ids, tiles_x: int, tile_w: int,
+                tile_h: int, final_t):
+    """The exact forward replayed entry by entry, vectorised over tiles and
+    pixels, in B1's arithmetic and order: yields a :class:`_Replayed` for
+    each step that some pixel is live."""
     dev = attrs.device
-    t = seg_start.shape[0]
-    f32 = torch.float32
     px, py = _pixel_grid(tile_ids, tiles_x, tile_w, tile_h)
-    max_alpha = torch.tensor(0.99, dtype=f32, device=dev)
-    gr, gg, gb = g_out[..., 0], g_out[..., 1], g_out[..., 2]
-    g_dot_out = (gr * out[..., 0] + gg * out[..., 1]) + gb * out[..., 2]
-    tfin_term = g_tfin * final_t
-
+    max_alpha = torch.tensor(0.99, dtype=torch.float32, device=dev)
     width = attrs.shape[1]
     start = seg_start.long()
     cnt = torch.minimum(counts.long(), (width - start).clamp(min=0))
-    gattrs = torch.zeros_like(attrs)
     trans = torch.ones_like(final_t)
-    prefix = torch.zeros_like(final_t)
-    comp = torch.zeros_like(final_t)
     done = torch.zeros(final_t.shape, dtype=torch.bool, device=dev)
-    visits = torch.zeros(final_t.shape, dtype=torch.int64, device=dev)
-    steps = int(cnt.max()) if t else 0
+    steps = int(cnt.max()) if seg_start.shape[0] else 0
     for k in range(steps):
         in_seg = k < cnt                                        # [T]
         live = in_seg[:, None] & ~done
@@ -369,26 +385,68 @@ def composite_stream_bwd_plain(attrs, seg_start, counts, bg, tile_ids,
         nxt = trans * one_minus
         fail = contrib & (nxt < 1e-4)
         include = contrib & ~fail
-        w = alpha * trans
-        g_dot_rgb = (gr * r + gg * gc) + gb * b
-        # the included entries' prefix sum of w·(g·rgb), compensated: the
-        # suffix g·out − prefix cancels, and a running f32 sum's error grows
-        # with the segment's length (ROADMAP C11)
-        term = torch.where(include, w * g_dot_rgb - comp, 0.0)
-        tot = prefix + term
-        comp = torch.where(include, (tot - prefix) - term, comp)
-        prefix = tot
-        dalpha = ((g_dot_rgb * trans - ((g_dot_out - prefix) + comp)
-                   / one_minus) - tfin_term / one_minus)
-        slope = include & (raw < 0.99)
-        dpower = torch.where(slope, dalpha * op * g, 0.0)
+        yield _Replayed(col, in_seg, live, ca, cb, cc, op, (r, gc, b), dx,
+                        dy, g, raw, one_minus, include, trans, alpha * trans)
+        trans = torch.where(include, nxt, trans)
+        done = done | fail
+
+
+def composite_stream_bwd_plain(attrs, seg_start, counts, bg, tile_ids,
+                               tiles_x: int, tile_w: int, tile_h: int, out,
+                               final_t, g_out, g_tfin, *,
+                               count_visits: bool = False):
+    """Plain PyTorch version of :func:`composite_stream_bwd`, same signature.
+
+    Replays the forward entry by entry, vectorised over tiles and pixels,
+    with B2's arithmetic in B2's order, but for the sum over a tile's
+    pixels, which is taken in another order. The suffix of a pixel's colour
+    sum behind entry k, sum_{j>k} w_j g.rgb_j + T_fin g.bg, is not read as
+    g.out minus the prefix: a first replay takes the compensated total of
+    w·(g·rgb), the second its compensated prefix, and the suffix is their
+    difference, so that it carries no rounding of ``out`` (which is not
+    read) and none that grows with the segment (ROADMAP C11, C13). The
+    final-T cotangent's term g_tfin T_fin rides on the suffix's last term,
+    under one division by 1 − α.
+    ``count_visits=True`` also returns the (entry, pixel) pairs visited, as
+    :func:`composite_stream_plain` counts them."""
+    gr, gg, gb = g_out[..., 0], g_out[..., 1], g_out[..., 2]
+    # the suffix's last term T_fin g.bg and dalpha's g_tfin T_fin, which
+    # shares its division by 1 - alpha
+    tail = (final_t * ((gr * bg[0] + gg * bg[1]) + gb * bg[2])
+            + g_tfin * final_t)
+    replay = (attrs, seg_start, counts, tile_ids, tiles_x, tile_w, tile_h,
+              final_t)
+
+    def g_dot(rgb):
+        return (gr * rgb[0] + gg * rgb[1]) + gb * rgb[2]
+
+    total = torch.zeros_like(final_t)
+    tcomp = torch.zeros_like(final_t)
+    for e in _bwd_replay(*replay):
+        total, tcomp = _kahan_add(total, tcomp, e.w * g_dot(e.rgb),
+                                  e.include)
+
+    gattrs = torch.zeros_like(attrs)
+    prefix = torch.zeros_like(final_t)
+    comp = torch.zeros_like(final_t)
+    visits = torch.zeros(final_t.shape, dtype=torch.int64,
+                         device=attrs.device)
+    for e in _bwd_replay(*replay):
+        include, w = e.include, e.w
+        g_dot_rgb = g_dot(e.rgb)
+        prefix, comp = _kahan_add(prefix, comp, w * g_dot_rgb, include)
+        suffix = ((total - prefix) + (comp - tcomp)) + tail
+        dalpha = g_dot_rgb * e.trans - suffix / e.one_minus
+        slope = include & (e.raw < 0.99)
+        dpower = torch.where(slope, dalpha * e.op * e.g, 0.0)
+        dx, dy, ca, cb, cc = e.dx, e.dy, e.ca, e.cb, e.cc
         rows = torch.stack([
             dpower * -(ca * dx + cb * dy),
             dpower * -(cc * dy + cb * dx),
             dpower * (-0.5 * dx * dx),
             dpower * (-dx * dy),
             dpower * (-0.5 * dy * dy),
-            torch.where(slope, dalpha * g, 0.0),
+            torch.where(slope, dalpha * e.g, 0.0),
             torch.where(include, gr * w, 0.0),
             torch.where(include, gg * w, 0.0),
             torch.where(include, gb * w, 0.0),
@@ -396,14 +454,12 @@ def composite_stream_bwd_plain(attrs, seg_start, counts, bg, tile_ids,
         sums = rows.sum(-1)                                     # [9, T]
         # a segment's columns are written while any of its pixels is live,
         # as the kernel writes every entry of a batch it runs
-        seg_live = in_seg & live.any(1)
-        gattrs[:9, col[seg_live]] = sums[:, seg_live]
-        trans = torch.where(include, nxt, trans)
-        done = done | fail
-        visits += live
+        seg_live = e.in_seg & e.live.any(1)
+        gattrs[:9, e.col[seg_live]] = sums[:, seg_live]
+        visits += e.live
     g_bg = torch.einsum("tpc,tp->c", g_out, final_t)
     if count_visits:
-        p = tile_w * tile_h
+        t, p = seg_start.shape[0], tile_w * tile_h
         return gattrs, g_bg, int(visits.amax(dim=1).sum()) * p if t else 0
     return gattrs, g_bg
 

@@ -59,8 +59,9 @@ per-entry gradients written) and its three barriers' waits:
 ``replay`` (the cull test and each pixel's alpha and T where the cull
 passes), ``gradient`` (each pixel's gradient, the butterfly sum over the
 warp and its store, and the culled warp-steps), ``cross_warp`` (the sum
-over the tile's warps and the writes), ``wait_batch`` and ``wait_sum``.
-A warp waiting at a barrier is idle while the other CTAs on its SM may
+over the tile's warps and the writes), ``wait_batch`` and ``wait_sum``,
+and ``total`` (the whole first walk, which sums each pixel's colour
+total, its barriers' waits included). A warp waiting at a barrier is idle while the other CTAs on its SM may
 issue. Counts, per warp: the warp-steps (one entry against one
 warp with a live lane), those with a contributing (forward) or included
 (backward) lane, the live (entry, pixel) pairs, the warp-steps the cull
@@ -99,7 +100,7 @@ SECTIONS = {
                         "closed_form", "wait_batch", "wait_groups",
                         "wait_sum"),
     "stream_bwd": ("stage", "replay", "gradient", "cross_warp",
-                   "wait_batch", "wait_sum"),
+                   "wait_batch", "wait_sum", "total"),
 }
 SECTIONS["padded_bwd"] = SECTIONS["stream_bwd"]
 COUNTS = ("warp_steps", "warp_steps_contributing", "lane_pairs",
@@ -210,7 +211,10 @@ def launch(lib, kernel: str, call, bwd=None, order=None, into=None):
     """One launch of ``kernel`` from ``lib`` on ``call``: a stream (attrs,
     seg_start, counts, bg, tile_ids, tiles_x, tile_w, tile_h), or for B4 and
     B5 padded tables (planes, rgb, valid, counts, bg, tiles_x, tile_w,
-    tile_h); ``bwd`` = (out, final_t, g_out, g_tfin) for a backward;
+    tile_h); ``bwd`` = (out, final_t, g_out, g_tfin) for a backward (B2
+    and B5 take ``bg`` in ``out``'s place: a tree between their redesign
+    and ROADMAP C13 read ``out``, and is measured with its own commit's
+    tools);
     ``order`` the tile order (int64; by default heaviest first, as the
     wrappers pass it); ``into`` the outputs of an earlier launch on the same
     call, written again (a backward's own outputs start zeroed). Returns its
@@ -246,6 +250,8 @@ def launch(lib, kernel: str, call, bwd=None, order=None, into=None):
         err = fn(*lead, *ordered, bg.data_ptr(), *_ptrs(res), *dims, stream)
     else:
         res = into or tuple(torch.zeros_like(a) for a in grads)
+        if kernel in ("stream_bwd", "padded_bwd") and not old:
+            bwd = (bg,) + tuple(bwd[1:])       # B2 and B5 read bg (C13)
         err = fn(*lead, *ordered, *_ptrs(bwd), *_ptrs(res), *dims, stream)
     if err:
         raise RuntimeError(f"{ENTRY[kernel]} launch failed: CUDA error {err}")

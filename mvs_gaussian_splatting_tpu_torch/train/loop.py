@@ -21,7 +21,12 @@ and ``gauss_parallel`` the Gaussians sharded. Every rank runs this loop
 with the same seeds, so camera draws, densification and every random draw
 are the same on every rank; after each densify round a checksum of the
 parameters and Adam state is compared across the ranks. Only rank 0
-writes files. The network viewer (A14) is not ported.
+writes files.
+
+The network viewer: once ``viewer.network_gui.init`` has opened a listener
+(``cli/train.py --ip``), :func:`_gui_pump` serves its requests at the top
+of every iteration, rendering the live state through the eval raster
+configuration (B1 on a card) with the exact instance bound.
 """
 
 from __future__ import annotations
@@ -46,6 +51,7 @@ from ..ops.rasterize import RasterConfig, widen_eval_budgets
 from ..parallel import multihost
 from ..utils.sphere import sphere_points
 from ..utils.system import seed_everything
+from ..viewer import network_gui
 from .checkpoint import load_checkpoint, save_checkpoint
 from .config import (ModelConfig, OptimizationConfig, PipelineConfig,
                      TrainRunConfig, save_cfg_args)
@@ -72,6 +78,16 @@ def eval_config(raster_cfg: RasterConfig) -> RasterConfig:
     or reported metrics composites in EXACT mode with the generous
     full-footprint tile budgets (ops.rasterize.widen_eval_budgets)."""
     return widen_eval_budgets(raster_cfg._replace(fast_math=False))
+
+
+def eval_instance_cap(n_rows: int, eval_cfg: RasterConfig) -> int:
+    """Exact tier-enumeration bound for an eval render over ``n_rows`` rows
+    (CHUNK-aligned): makes global capacity overflow impossible by
+    construction, as cli/render's eval configuration does."""
+    from ..ops.binning import stream_instance_bound
+    bound = stream_instance_bound(n_rows, eval_cfg.max_tiles_per_gaussian,
+                                  eval_cfg.tier_budgets, eval_cfg.tier_fracs)
+    return bound + (-bound) % 128
 
 
 def adaptive_eval_layout(params, aux, cameras, eval_cfg: RasterConfig,
@@ -343,6 +359,10 @@ def train(model_cfg: ModelConfig, opt_cfg: OptimizationConfig,
             profiler = None
             log_fn(f"[ITER {iteration}] profiler trace written to "
                    f"{profile_dir}")
+        if network_gui.listener is not None:
+            whole()
+            _gui_pump(model_cfg, params, aux, eval_cfg, active_sh, iteration,
+                      opt_cfg.iterations)
         if iteration % 1000 == 0 and active_sh < model_cfg.sh_degree:
             active_sh += 1
 
@@ -736,6 +756,51 @@ def _make_tb_writer(model_path: str):
     except ImportError:
         print("Tensorboard not available: not logging progress")
         return None
+
+
+def _gui_pump(model_cfg, params, aux, raster_cfg, sh_degree, iteration,
+              max_iterations):
+    """Network-viewer pump, once per iteration (train.py:55-68): serves the
+    connected viewer's requests until one asks to go on training. No-op
+    until ``viewer.network_gui.init()`` has been called by the CLI. A
+    viewer that fails mid-request is dropped, and training goes on."""
+    if network_gui.listener is None:
+        return
+    if network_gui.conn is None:
+        network_gui.try_connect()
+    device = params.xyz.device
+    while network_gui.conn is not None:
+        try:
+            net_image_bytes = None
+            (custom_cam, do_training, shs_py, cov_py, keep_alive,
+             scaling_modifier) = network_gui.receive()
+            if custom_cam is not None:
+                from ..ops.render import render as render_fn
+                bg = (torch.ones(3, device=device)
+                      if model_cfg.white_background
+                      else torch.zeros(3, device=device))
+                # the viewer's toggles reach the render as in the reference
+                # (train.py:60); the stream backend takes the exact instance
+                # bound, so that a frame cannot overflow the slots
+                rc = raster_cfg
+                if rc.backend in ("stream", "auto"):
+                    rc = rc._replace(instance_cap=eval_instance_cap(
+                        params.xyz.shape[0], rc))
+                with torch.no_grad():
+                    out = render_fn(custom_cam.view(device),
+                                    custom_cam.image_width,
+                                    custom_cam.image_height, params, bg,
+                                    sh_degree=sh_degree, alive=aux.alive,
+                                    scale_modifier=scaling_modifier,
+                                    convert_shs_python=bool(shs_py),
+                                    compute_cov3d_python=bool(cov_py),
+                                    raster_config=rc)
+                net_image_bytes = network_gui.render_to_bytes(out["render"])
+            network_gui.send(net_image_bytes, model_cfg.source_path)
+            if do_training and (iteration < max_iterations or not keep_alive):
+                break
+        except Exception:
+            network_gui.conn = None
 
 
 def _make_progress(first_iter: int, iterations: int):

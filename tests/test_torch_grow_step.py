@@ -125,6 +125,10 @@ def test_spec_step_matches_jax(fast, grad_rel, monkeypatch):
         print("grow step to f64 (JAX / port): " + ", ".join(
             f"{k} {j:.2e} / {t:.2e}" for k, (j, t) in gaps.items()))
         assert max(max(v) for v in gaps.values()) <= 3.2e-6, gaps
+        # ROADMAP C13: the port no farther from float64 than
+        # max(1.25 × the JAX package's gap, 5e-7), leaf by leaf
+        for k, (j, t) in gaps.items():
+            assert t <= max(1.25 * j, 5e-7), (k, j, t)
     # the statistics of the original rows (the aux): the same
     # visibility, radii and accumulated NDC gradient norms
     for k, v in jaux2._asdict().items():

@@ -15,7 +15,7 @@ held against ``composite_stream_plain`` within 2e-4 max abs (the bound the
 JAX package's kernels were held to against CPU f32; the two differ only in
 the last bits of exp, and a flipped 1/255 or 1e-4 threshold). The backward
 kernel is held to ``composite_stream_bwd_plain`` per attribute row within
-1e-5 of that row's largest magnitude: the two replay the forward with the
+3e-6 of that row's largest magnitude: the two replay the forward with the
 same rounding and differ only in the order of the sum over a tile's pixels.
 The fast-math kernels (B3f, B3b) are held to their plain versions within
 the JAX package's fast-mode contract (``tests/test_fast_math.py``): 2e-3
@@ -26,7 +26,7 @@ the kernels a per-pixel loop with TF32 tensor-core moment sums. The
 kernels walk 8×4-pixel warp blocks and skip entries whose cull box misses
 a block (``TestCompactBlocksAndCull``), which must change no output.
 B4 is held to ``composite_padded_plain`` within 2e-4 and B5 to
-``composite_padded_bwd_plain`` within 1e-5 per plane, as B1 and B2.
+``composite_padded_bwd_plain`` within 3e-6 per plane, as B1 and B2.
 """
 
 import ast
@@ -44,7 +44,11 @@ from mvs_gaussian_splatting_tpu_torch.ops.stream import (
 torch.set_num_threads(1)
 
 TOL = 2e-4
-BWD_REL = 1e-5
+# B2 and B5 against their plain versions, which do the same arithmetic
+# (two walks, a compensated total and prefix: ROADMAP C13) but for the
+# order of the sum over a tile's pixels: measured on an NVIDIA H100 80GB
+# HBM3 at 700 W, up to 2.4e-6 of a row's scale (the grazing edge case)
+BWD_REL = 3e-6
 FAST_TOL = 2e-3      # the JAX package's fast-mode contract
 FAST_REL = 5e-3
 
@@ -752,7 +756,7 @@ def exact_row_gaps(got, want, attrs):
 class TestExactBackwards:
     """B2 and B5, one kernel body (csrc/exact_bwd.cuh), on the edge cases of
     the compact warp blocks and the cull, and on every tile shape their
-    forwards take: within 1e-5 of each row's (plane's) largest magnitude
+    forwards take: within 3e-6 of each row's (plane's) largest magnitude
     of the plain version, exact zeros outside the segments, in rows 9-15
     and in invalid or uncounted slots, and two launches equal to the bit."""
 
@@ -994,7 +998,9 @@ def test_one_part_tiles_bit_equal_to_baseline(baseline, geometry):
     """At tiles of one part (the main path's 16×16 and 32×16) every kernel
     gives the baseline tree's bits: B1, B3f, B2, B3b, B5 run their
     one-part instantiation, the parent's code; B4 its redesign, which
-    replays the same per-entry arithmetic in the same order.
+    replays the same per-entry arithmetic in the same order. B2 and B5
+    read ``bg`` since ROADMAP C13: a baseline tree from before it is
+    measured with its own commit's tools.
 
         GS_BASELINE_CSRC=build/parent/mvs_gaussian_splatting_tpu_torch/csrc \
             python -m pytest --noconftest -p no:cacheprovider -m gpu \

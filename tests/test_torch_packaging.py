@@ -1,11 +1,17 @@
 """Packaging of the port's CUDA sources: an installed package (not a
 checkout) must carry every file its kernels include, and must not build
-into the directory that holds it (``site-packages``)."""
+into the directory that holds it (``site-packages``). And the port's MVS
+branch, viewer and their CLIs import nothing of JAX."""
 
+import ast
 import pathlib
 import re
+import subprocess
+import sys
 import tomllib
 from fnmatch import fnmatch
+
+import pytest
 
 from mvs_gaussian_splatting_tpu_torch import kernels
 
@@ -97,3 +103,53 @@ def test_native_builds_outside_an_installed_package(tmp_path, monkeypatch):
     assert so.is_file()
     assert sorted(p.name for p in site.rglob("*")) == [
         "gsio.cpp", PACKAGE, "native"]
+
+
+# The MVS branch, the network viewer and their CLIs: torch, numpy, PIL
+# and sockets only
+NO_JAX_FILES = sorted(
+    [p.relative_to(ROOT).as_posix() for d in ("mvs", "viewer")
+     for p in (ROOT / PACKAGE / d).glob("*.py")]
+    + [f"{PACKAGE}/cli/mvs_train.py", f"{PACKAGE}/cli/view.py"])
+BANNED = {"jax", "jaxlib", "flax", "optax", "mvs_gaussian_splatting_tpu"}
+
+
+@pytest.mark.parametrize("rel", NO_JAX_FILES)
+def test_imports_no_jax(rel):
+    """No import, at the top or inside a function, names JAX, flax, optax
+    or a module of the JAX package."""
+    found = []
+    for node in ast.walk(ast.parse((ROOT / rel).read_text())):
+        if isinstance(node, ast.Import):
+            names = [a.name for a in node.names]
+        elif isinstance(node, ast.ImportFrom) and node.level == 0:
+            names = [node.module]
+        else:
+            continue
+        found += [n for n in names if n.split(".")[0] in BANNED]
+    assert not found, found
+
+
+def test_new_modules_import_with_jax_blocked():
+    """The modules import, and the CLIs parse their flags, in a process
+    where importing JAX, flax, optax or the JAX package fails."""
+    modules = [rel[:-3].replace("/", ".") for rel in NO_JAX_FILES]
+    code = (
+        "import sys\n"
+        f"for name in {sorted(BANNED)!r}:\n"
+        "    sys.modules[name] = None\n"
+        "import importlib\n"
+        f"for m in {modules!r}:\n"
+        "    importlib.import_module(m)\n"
+        f"from {PACKAGE}.cli import mvs_train, view\n"
+        "for cli in (mvs_train, view):\n"
+        "    try:\n"
+        "        cli.main(['--help'])\n"
+        "    except SystemExit as e:\n"
+        "        assert e.code == 0\n"
+        "assert not any(k.split('.')[0] in "
+        f"{sorted(BANNED)!r} and sys.modules[k] is not None "
+        "for k in sys.modules)\n")
+    res = subprocess.run([sys.executable, "-c", code], cwd=ROOT,
+                         capture_output=True, text=True, timeout=120)
+    assert res.returncode == 0, res.stderr

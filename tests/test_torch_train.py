@@ -368,7 +368,7 @@ class TestTrainStep:
         # mu_new − 0.9·mu = 0.1·g, within 3.5e-6 of each leaf's scale
         # (measured 1.3-2.8e-6), and each package within 3e-6 of the
         # float64 evaluation of the same step (measured: JAX 1.2-2.3e-6,
-        # the port 0.47-2.3e-6; ROADMAP C11)
+        # the port 0.47-2.3e-6; ROADMAP C11, C13)
         l64 = leaves64(p, 192)
         img64, _ = render64(l64, taux.alive[:192], tcam, bg)
         loss64(img64, torch.tensor(gt).double(), opt, l64["opacity"],
@@ -386,6 +386,9 @@ class TestTrainStep:
         for k in FIELDS:
             assert gaps[k][0] <= 3.5e-6, k
             assert max(gaps[k][1:]) <= 3e-6, k
+            # ROADMAP C13: the port no farther from float64 than
+            # max(1.25 × the JAX package's gap, 5e-7)
+            assert gaps[k][2] <= max(1.25 * gaps[k][1], 5e-7), k
             np.testing.assert_allclose(getattr(tst.nu, k).numpy(),
                                        np.asarray(getattr(jst.nu, k)),
                                        rtol=1e-4, atol=1e-12, err_msg=k)
