@@ -260,12 +260,23 @@ reader). Phases, one JSON line each:
    (b) ``cli/train.py --ip 127.0.0.1 --port <free>`` for 20 steps from
    phase 7's checkpoint, a client asking for a frame with ``train=True``
    at each step: every step and every frame arrives;
+20. tools, the benches, profile and entry points (``tools/``) through their
+   entry points, at the widths of the JAX repository's benches: the 1080p
+   forward+backward bench on 200,000 Gaussians in fast math, ``--exact``
+   and ``--forward``; the train bench on fern (504×378, 250,000) and
+   bicycle (1237×822, 500,000), 200 timed steps each; the 1080p step
+   profile; the scaling bench and the sharded compress pipeline at world
+   size 1 (the pipeline 150 of its 300 iterations, held to the JAX test's
+   five criteria); ``graft_entry.entry()`` with B1 against its plain
+   version on the same projected Gaussians (2e-4) and
+   ``dryrun_multichip(1)``; every gradient finite, every overflow
+   counted, a capacity overflow a fault;
 
 then the ``kernels`` line (B1, B2, B3f, B3b, B4 and B5, with their launches
 on the main paths: the render slice of phase 4, the two arms of phase 7
 (not its control), phase 8, phase 9, phase 9b, phase 11's renders and
 training, phase 12's dataset, phase 13's three arms, phase 14's render CLI
-and full_eval, phase 15's render, phase 17 and phases 18 and 19, each
+and full_eval, phase 15's render, phase 17 and phases 18, 19 and 20, each
 counted from zero)
 and last ``{"ok": true, "device": {...}}``. A failed check raises after the
 measurements and exits non-zero without printing those two lines; without a
@@ -282,7 +293,6 @@ import json
 import os
 import re
 import shutil
-import subprocess
 import sys
 import tempfile
 import time
@@ -430,6 +440,12 @@ MVS_LOSS_DROP = 0.7           # last logged loss < 0.7 × the first
 VIEWER_FRAMES = 5
 VIEWER_STEPS = 20
 VIEWER_TRAIN_SIZE = (640, 426)  # the frames asked for while training
+# phase 20: the tools (tools/), at the widths of the JAX repository's
+# benches; the train benches cut to TOOLS_TRAIN_ITERS timed steps, the
+# pipeline to TOOLS_PIPELINE_ITERS of its 300 iterations
+TOOLS_BENCH_ITERS = 50            # the host-bound step varies between calls
+TOOLS_TRAIN_ITERS = 200
+TOOLS_PIPELINE_ITERS = 150
 TRAIN_FLAGS = ["--eval", "--resolution", "1",
                "--tile_w", "32", "--tile_h", "16",
                "--max_tiles_per_gaussian", "512",
@@ -1162,18 +1178,15 @@ def trace_summary(path, top=12):
     kernels that took most of it, and per step the host time of each of
     train_step's profiler ranges and the device time of the work launched
     inside it (on any thread: the backward runs on autograd's)."""
-    with open(path) as f:
-        events = json.load(f)["traceEvents"]
-    dev = [e for e in events if e.get("cat") in ("kernel", "gpu_memcpy",
-                                                 "gpu_memset")]
+    from mvs_gaussian_splatting_tpu_torch.tools.measure import (
+        busy_window, trace_events)
+    events, dev = trace_events(path)
     if not dev:
         return {"device_events": 0}
-    start = min(e["ts"] for e in dev)
-    end = max(e["ts"] + e["dur"] for e in dev)
+    window, busy = busy_window(dev)
     by_name = {}
     for e in dev:
         by_name[e["name"]] = by_name.get(e["name"], 0.0) + e["dur"]
-    busy = sum(by_name.values())
     ranked = sorted(by_name.items(), key=lambda kv: -kv[1])[:top]
     launched = {e["args"]["correlation"]: e["ts"] for e in events
                 if e.get("cat") in ("cuda_runtime", "cuda_driver")
@@ -1195,8 +1208,8 @@ def trace_summary(path, top=12):
                      "device_ms_per_step": ph["device_us"] / ph["steps"]
                      / 1e3}
               for name, ph in sorted(phases.items())}
-    return {"device_events": len(dev), "window_ms": (end - start) / 1e3,
-            "busy_ms": busy / 1e3, "busy_share": busy / (end - start),
+    return {"device_events": len(dev), "window_ms": window / 1e3,
+            "busy_ms": busy / 1e3, "busy_share": busy / window,
             "top_ms": [[name[:90], us / 1e3] for name, us in ranked],
             "train_step_phases": phases,
             "train_step_device_ms": sum(ph["device_ms_per_step"]
@@ -3163,6 +3176,134 @@ def viewer_phase(tmp, data, params, test_cams, seed, faults):
     return launches
 
 
+def tools_bench_phase(tmp, faults):
+    """Phase 20: the tools (``tools/``) on the card through their entry
+    points: the 1080p bench fast, ``--exact`` and ``--forward``; the train
+    bench on fern and bicycle; the step profile; the scaling bench and the
+    sharded compress pipeline at world size 1, the pipeline held to the
+    JAX test's five criteria; ``graft_entry``'s ``entry()`` render against
+    its plain version on the same projected Gaussians, and its
+    ``dryrun_multichip(1)``. Every gradient finite and every overflow
+    counted; a capacity overflow is a fault. Returns the launches."""
+    import torch
+
+    from mvs_gaussian_splatting_tpu_torch.ops import stream
+    from mvs_gaussian_splatting_tpu_torch.ops.preprocess import preprocess
+    from mvs_gaussian_splatting_tpu_torch.ops.rasterize import \
+        bin_and_pack_stream
+    from mvs_gaussian_splatting_tpu_torch.ops.render import render
+    from mvs_gaussian_splatting_tpu_torch.models.gaussians import (
+        activated, get_features)
+    from mvs_gaussian_splatting_tpu_torch.tools import (
+        bench, graft_entry, profile_step, scaling_bench,
+        sharded_compress_pipeline, train_bench)
+    t_phase = time.time()
+    launches = {k: 0 for k in KERNELS}
+
+    def counted(name, fn, check=None):
+        """fn()'s result, emitted with its launches and seconds; with
+        ``check``, check(result) in its place, run after the launches are
+        read, so that a comparison's own launches are not the path's."""
+        reset_launches()
+        t0 = time.time()
+        res = fn()
+        torch.cuda.synchronize()
+        got = read_launches()
+        add_launches(launches, got)
+        seconds = round(time.time() - t0, 1)
+        if check is not None:
+            res = check(res)
+        emit({"phase": f"tools_{name}", "result": res, "launches": got,
+              "seconds": seconds})
+        return res
+
+    for name, kw in (("bench_fast", {}), ("bench_exact", {"fast": False}),
+                     ("bench_forward", {"forward": True})):
+        res = counted(name, lambda: bench.run(iters=TOOLS_BENCH_ITERS, **kw))
+        extra = res["extra"]
+        if not extra["finite"] or extra["tile_capacity_overflow_entries"] \
+                or extra["overflow_visible"]:
+            faults.append(f"tools {name}: {extra}")
+    for wl in ("fern", "bicycle"):
+        res = counted(f"train_bench_{wl}", lambda: train_bench.run(
+            wl, iters=TOOLS_TRAIN_ITERS))
+        extra = res["extra"]
+        if not extra["finite"] or extra["nonfinite_grad_rows"] \
+                or extra["overflow_capacity"] or extra["overflow_visible"] \
+                or not extra["loss_last"] < extra["loss_first"]:
+            faults.append(f"tools train_bench {wl}: {extra}")
+    res = counted("profile_step", lambda: profile_step.run(iters=5))
+    if res["overflow_capacity"]:
+        faults.append(f"tools profile_step: {res['overflow_capacity']}")
+    res = counted("scaling_bench", lambda: scaling_bench.run(1, "cuda"))
+    for leg, rec in res["legs"].items():
+        entry = rec["by_devices"]["1"]
+        if entry["overflow"].get("capacity") or not np.isfinite(
+                entry.get("loss", 0.0)):
+            faults.append(f"tools scaling_bench {leg}: {entry}")
+    res = counted("sharded_compress_pipeline",
+                  lambda: sharded_compress_pipeline.run(
+                      os.path.join(tmp, "shardcompress"), n_dev=1,
+                      iters=TOOLS_PIPELINE_ITERS, device="cuda",
+                      log=lambda *_: None))
+    if not (res["psnr_trained_loop_eval"] > res["psnr_init"] + 0.5
+            and abs(res["psnr_offline_raw_ply"]
+                    - res["psnr_trained_loop_eval"]) < 0.2
+            and res["compressed_npz_bytes"] < res["raw_ply_bytes"]
+            and res["compression_delta_db"] < 3.0
+            and res["psnr_offline_compressed"] > res["psnr_init"]
+            and res["train_overflow_capacity"] == 0):
+        faults.append(f"tools sharded_compress_pipeline: {res}")
+
+    fn, (params, alive, cam, bg) = graft_entry.entry("cuda")
+
+    def entry_path():
+        return {"img": fn(params, alive, cam, bg),
+                "dryrun_losses": graft_entry.dryrun_multichip(1, "cuda")}
+
+    def entry_check(res):
+        """B1 against its plain version on the card's own projected
+        Gaussians (entry()'s layout, render()'s front half), and the
+        image against render()'s."""
+        img = res["img"]
+        cfg = graft_entry.ENTRY_CONFIG
+        size = graft_entry.ENTRY_SIZE
+        tx = -(-size // cfg.tile_w)
+        with torch.no_grad():
+            s, r, o = activated(params)
+            p = preprocess(params.xyz, o, cam, size, size, scales=s,
+                           rotations=r, shs=get_features(params),
+                           sh_degree=3, mask=alive, tile_w=cfg.tile_w,
+                           tile_h=cfg.tile_h)
+            bins, attrs = bin_and_pack_stream(p, tx, tx, cfg)
+            ids = torch.arange(tx * tx, dtype=torch.int32, device="cuda")
+            args = (attrs, bins.seg_start, bins.counts, bg, ids, tx,
+                    cfg.tile_w, cfg.tile_h)
+            out, tfin = stream.composite_stream(*args)
+            ref, rtfin = stream.composite_stream_plain(*args)
+            full = render(cam, size, size, params, bg, sh_degree=3,
+                          alive=alive, raster_config=cfg)
+        return {"shape": list(img.shape), "mean": float(img.mean()),
+                "finite": bool(torch.isfinite(img).all()),
+                "kernel_vs_plain_max_abs": max(
+                    float((out - ref).abs().max()),
+                    float((tfin - rtfin).abs().max())),
+                "image_vs_render_max_abs": float(
+                    (img - full["render"]).abs().max()),
+                "overflow_capacity": int(bins.overflow_capacity),
+                "dryrun_losses": res["dryrun_losses"]}
+
+    res = counted("entry", entry_path, entry_check)
+    if not (res["finite"] and res["kernel_vs_plain_max_abs"] <= TOL
+            and res["image_vs_render_max_abs"] == 0.0
+            and res["overflow_capacity"] == 0
+            and all(np.isfinite(v) for v in res["dryrun_losses"].values())):
+        faults.append(f"tools entry: {res}")
+    emit({"phase": "tools_bench", "launches": launches,
+          "seconds": round(time.time() - t_phase, 1)})
+    return launches
+
+
 def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--seed", type=int, default=0,
@@ -3175,10 +3316,10 @@ def main(argv=None):
     if not torch.cuda.is_available():
         sys.exit("chip_smoke: torch.cuda.is_available() is false; "
                  "this check needs a CUDA card")
-    smi = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit",
-         "--format=csv,noheader"], capture_output=True, text=True,
-        check=True).stdout.strip().splitlines()[0]
+    from mvs_gaussian_splatting_tpu_torch.tools.measure import card
+    smi = card()
+    if smi is None:
+        sys.exit("chip_smoke: nvidia-smi gave no card name and power limit")
     print(smi, flush=True)
     kind = torch.cuda.get_device_name(0)
     emit({"phase": "card", "nvidia_smi": smi, "kind": kind,
@@ -3488,6 +3629,7 @@ def main(argv=None):
         mvs = mvs_phase(tmp, args.seed, faults)
         viewer = viewer_phase(tmp, data, params, test_cams, args.seed,
                               faults)
+        tools = tools_bench_phase(tmp, faults)
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
     # 10. sections: the split, the SASS loop and the issue-rate floor
@@ -3549,7 +3691,8 @@ def main(argv=None):
              "dataset": flagship["launches"],
              **{f"grow_resume_{k}": v for k, v in grow.items()},
              **chain, "compress_render": compressed["launches"],
-             "parallel_modes": parallel, "mvs": mvs, "viewer": viewer}
+             "parallel_modes": parallel, "mvs": mvs, "viewer": viewer,
+             "tools": tools}
     totals = {k: sum(p[k] for p in paths.values()) for k in KERNELS}
     emit({"phase": "main_path_launches", "paths": paths, "totals": totals,
           "seconds_total": round(time.time() - t_start, 1)})

@@ -44,20 +44,21 @@ class _AllToAll(torch.autograd.Function):
     exchange."""
 
     @staticmethod
-    def forward(ctx, x, group):
-        ctx.group = group
-        return exchange(x, group)
+    def forward(ctx, x, group, mesh):
+        ctx.group, ctx.mesh = group, mesh
+        return exchange(x, group, mesh)
 
     @staticmethod
     def backward(ctx, g):
-        return exchange(g, ctx.group), None
+        return exchange(g, ctx.group, ctx.mesh), None, None
 
 
-def exchange(x: torch.Tensor, group) -> torch.Tensor:
-    """Chunk d of dim 0 to rank d, no autograd; the identity without a
-    group."""
+def exchange(x: torch.Tensor, group, mesh: Mesh) -> torch.Tensor:
+    """Chunk d of dim 0 to rank d, no autograd, counted on ``mesh``; the
+    identity without a group."""
     if group is None:
         return x
+    mesh.note("all_to_all", x)
     out = torch.empty_like(x)
     dist.all_to_all_single(out, x.contiguous(), group=group)
     return out
@@ -130,8 +131,8 @@ def make_gauss_sharded_stream(mesh: Mesh, axis: str, image_width: int,
                                    strip_count, q))[:, None]], dim=1)
 
         # 3. the exchange: rank j receives chunk j of every source
-        recv = _AllToAll.apply(send.contiguous(), group)   # [D, Q, 16]
-        recv_meta = exchange(send_meta.contiguous(), group)
+        recv = _AllToAll.apply(send.contiguous(), group, mesh)  # [D, Q, 16]
+        recv_meta = exchange(send_meta.contiguous(), group, mesh)
         recv_tile_counts = recv_meta[:, :t_per].long()
         recv_count = recv_meta[:, t_per].long()
 

@@ -39,6 +39,9 @@ class Mesh:
             self.coords = {a: int(i) for a, i in zip(axes, idx)}
         self.groups: Dict[str, Optional[object]] = {a: None for a in axes}
         self.group: Optional[object] = None
+        # collectives this rank issued over the mesh's groups: operation →
+        # [calls, bytes this rank sent]
+        self.collectives: Dict[str, list] = {}
         if dist.is_initialized() and world_size() > 1:
             self._make_groups(shape)
 
@@ -57,6 +60,12 @@ class Mesh:
                  else dist.new_group(list(range(self.size))))
             if self.member:
                 self.group = g
+
+    def note(self, op: str, t: torch.Tensor) -> None:
+        """Count one collective ``op`` that sends ``t`` from this rank."""
+        c = self.collectives.setdefault(op, [0, 0])
+        c[0] += 1
+        c[1] += t.numel() * t.element_size()
 
     def axis_size(self, axis: Optional[str] = None) -> int:
         return self.size if axis is None else self.shape[axis]
@@ -118,6 +127,7 @@ def all_reduce(t: torch.Tensor, mesh: Mesh, axis: Optional[str] = None,
     SUM by default; the identity on a line of one rank."""
     g = mesh.axis_group(axis)
     if g is not None:
+        mesh.note("all_reduce", t)
         dist.all_reduce(t, op=dist.ReduceOp.SUM if op is None else op,
                         group=g)
     return t
@@ -131,6 +141,7 @@ def all_gather(t: torch.Tensor, mesh: Mesh,
     if g is None:
         return t[None]
     n = mesh.axis_size(axis)
+    mesh.note("all_gather", t)
     out = t.new_empty(n * t.numel())
     gather = getattr(dist, "all_gather_single", None) or \
         dist.all_gather_into_tensor

@@ -92,6 +92,7 @@ import numpy as np
 import torch
 
 from . import kernels
+from .tools.measure import card
 
 _FWD = ("stage", "composite", "epilogue", "wait_batch")
 SECTIONS = {
@@ -662,9 +663,7 @@ def main(argv=None):
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         raise SystemExit("profile_kernels needs a CUDA card")
-    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
-                          "--format=csv,noheader"], capture_output=True,
-                         text=True, check=True).stdout.strip()
+    smi = card()
     trees = [*args.baseline, args.csrc]
     if args.baseline:
         trees += trees[::-1]

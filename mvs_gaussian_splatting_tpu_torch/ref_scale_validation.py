@@ -38,7 +38,6 @@ import math
 import os
 import re
 import shutil
-import subprocess
 import time
 
 import numpy as np
@@ -318,11 +317,10 @@ def _card(device: str) -> dict:
     if not str(device).startswith("cuda"):
         return {"device": str(device)}
     import torch
-    smi = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit",
-         "--format=csv,noheader"], capture_output=True, text=True)
+
+    from .tools.measure import card
     return {"device": torch.cuda.get_device_name(0),
-            "nvidia_smi": smi.stdout.strip().splitlines()[:1]}
+            "nvidia_smi": [card()]}
 
 
 def main(argv=None):

@@ -32,7 +32,6 @@ from mvs_gaussian_splatting_tpu.train import OptimizationConfig
 from mvs_gaussian_splatting_tpu.train.grow_step import \
     make_spec_batch_train_step
 from mvs_gaussian_splatting_tpu.utils.sphere import sphere_points
-from mvs_gaussian_splatting_tpu_torch.parallel.mesh import make_mesh as tmesh
 
 torch.set_num_threads(1)
 
@@ -150,34 +149,3 @@ class TestDataParallel:
         assert seen.any()
         np.testing.assert_array_equal((got["denom"] - base["denom"])[seen],
                                       8.0)
-
-
-class TestSpecBatchStep:
-    def test_b1_matches_single(self):
-        single, batched = R.spec_steps(tmesh(1))
-        cam = R.torch_camera(R.orbit_camera_np(W, H, 0.35))
-        one = R.spec_step_result(single, cam)
-        got = R.spec_step_result(batched, [cam])
-        assert got["metrics"]["loss"] == pytest.approx(
-            one["metrics"]["loss"], rel=1e-6)
-        for k, v in one["params"].items():
-            np.testing.assert_allclose(got["params"][k], v, atol=1e-6,
-                                       err_msg=k)
-        np.testing.assert_array_equal(got["aux"]["denom"], one["aux"]["denom"])
-
-    def test_b4_sharded_runs_and_accumulates_stats(self, ranks):
-        jp, jaux, jloss = jax_spec(4)
-        res = ranks.get()
-        denom_before = R.grow_state()[3]["denom"].sum()
-        for n in R.SIZES:
-            got = res[0][("spec4", n)]
-            assert np.isfinite(got["metrics"]["loss"])
-            assert got["aux"]["denom"].sum() > denom_before
-            for v in got["params"].values():
-                assert np.isfinite(v).all()
-            assert got["metrics"]["loss"] == pytest.approx(jloss, rel=1e-5)
-            for k, v in jp.items():
-                np.testing.assert_allclose(got["params"][k], v, atol=1e-5,
-                                           err_msg=f"{n} ranks, {k}")
-            np.testing.assert_array_equal(got["aux"]["denom"],
-                                          jaux["denom"])

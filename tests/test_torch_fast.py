@@ -27,28 +27,10 @@ import numpy as np
 import pytest
 import torch
 
-from mvs_gaussian_splatting_tpu.models.gaussians import \
-    GaussianParams as JParams
 from mvs_gaussian_splatting_tpu.ops.pallas.stream import \
     composite_stream as jcomposite
-from mvs_gaussian_splatting_tpu.train.config import \
-    PipelineConfig as JPipelineConfig
-from mvs_gaussian_splatting_tpu.train.loop import \
-    raster_config_from_pipe as jraster_config_from_pipe
-from mvs_gaussian_splatting_tpu.train.step import \
-    make_train_step as jmake_train_step
-from mvs_gaussian_splatting_tpu_torch.models.gaussians import \
-    params_from_numpy
 from mvs_gaussian_splatting_tpu_torch.ops import stream as tstream
-from mvs_gaussian_splatting_tpu_torch.ops.rasterize import RasterConfig
-from mvs_gaussian_splatting_tpu_torch.ops.render import render
-from mvs_gaussian_splatting_tpu_torch.train.config import PipelineConfig
-from mvs_gaussian_splatting_tpu_torch.train.loop import \
-    raster_config_from_pipe
-from mvs_gaussian_splatting_tpu_torch.train.step import make_train_step
-from test_torch_grad import cameras, random_model
-from test_torch_train import (FIELDS, H, W, _camera, jax_state, rel_gap,
-                              scene_state, torch_state)
+from test_torch_train import H, W, rel_gap
 
 torch.set_num_threads(1)
 
@@ -147,24 +129,6 @@ class TestStreamFast:
               + " ".join(f"{g:.1e}" for g in gaps))
         assert gap <= FAST_IMG and max(gaps) <= FAST_GRAD
 
-    def test_autograd_routes_fast_to_fast_plain(self, monkeypatch):
-        s = _stream((32, 16))
-        g_out, g_tfin = (torch.from_numpy(c) for c in _cotangents(s))
-        args = [torch.from_numpy(s[k]) for k in NAMES] + [s["tiles_x"], 32,
-                                                          16]
-
-        def refuse(*a, **k):
-            raise AssertionError("fast mode reached an exact plain version")
-
-        monkeypatch.setattr(tstream, "composite_stream_plain", refuse)
-        monkeypatch.setattr(tstream, "composite_stream_bwd_plain", refuse)
-        attrs = args[0].clone().requires_grad_()
-        out, tfin = tstream.composite_stream(attrs, *args[1:], fast=True)
-        torch.autograd.backward((out, tfin), (g_out, g_tfin))
-        want, _ = tstream.composite_stream_bwd_fast_plain(
-            *args, out.detach(), tfin.detach(), g_out, g_tfin)
-        torch.testing.assert_close(attrs.grad, want, rtol=0, atol=0)
-
 
 @functools.partial(jax.jit, static_argnames=("cfg",))
 def _jax_render_grads(jp, ndc, jcam, bg, w_img, w_t, *, cfg):
@@ -174,99 +138,3 @@ def _jax_render_grads(jp, ndc, jcam, bg, w_img, w_t, *, cfg):
         return ((out["render"] * w_img).sum() + (out["final_T"] * w_t).sum(),
                 (out["render"], out["final_T"]))
     return jax.grad(loss, argnums=(0, 1), has_aux=True)(jp, ndc)
-
-
-def test_render_fast_matches_jax(jax_stream_interpret):
-    """The image and every parameter's gradient (and the viewspace
-    statistic's) of ``render`` with ``fast_math=True`` against the JAX
-    package's fast stream path, at its ``tests/test_fast_math.py`` scene
-    size (150 Gaussians, 64×48)."""
-    n = 150
-    d = random_model(n, seed=13)
-    jcam, tcam = cameras()
-    rng = np.random.RandomState(14)
-    w_img = rng.randn(3, H, W).astype(np.float32)
-    w_t = rng.randn(H, W).astype(np.float32)
-    bg = np.array([0.1, 0.2, 0.3], np.float32)
-    cfg_kw = dict(instance_cap=1 << 14, fast_math=True)
-    (gp_j, gndc_j), (img_j, tfin_j) = _jax_render_grads(
-        JParams(**{k: jnp.asarray(v) for k, v in d.items()}),
-        jnp.zeros((n, 2)), jcam, jnp.asarray(bg), jnp.asarray(w_img),
-        jnp.asarray(w_t), cfg=jrast.RasterConfig(backend="stream", **cfg_kw))
-
-    tp = params_from_numpy(d, "cpu")
-    tp = type(tp)(*[None if a is None else a.requires_grad_() for a in tp])
-    ndc = torch.zeros((n, 2), requires_grad=True)
-    out = render(tcam, W, H, tp, torch.tensor(bg), sh_degree=3,
-                 ndc_offset=ndc, raster_config=RasterConfig(**cfg_kw))
-    loss = ((out["render"] * torch.tensor(w_img)).sum()
-            + (out["final_T"] * torch.tensor(w_t)).sum())
-    loss.backward()
-    gap = max(float(np.abs(out["render"].detach().numpy()
-                           - np.asarray(img_j)).max()),
-              float(np.abs(out["final_T"].detach().numpy()
-                           - np.asarray(tfin_j)).max()))
-    gaps = {k: rel_gap(getattr(tp, k).grad.numpy(),
-                       np.asarray(getattr(gp_j, k))) for k in d}
-    gaps["ndc_offset"] = rel_gap(ndc.grad.numpy(), np.asarray(gndc_j))
-    print(f"fast render vs JAX: image {gap:.1e}; grads " + ", ".join(
-        f"{k} {v:.1e}" for k, v in gaps.items()))
-    assert gap <= TOL and max(gaps.values()) <= REL
-
-
-def test_train_step_default_config_matches_jax(jax_stream_interpret):
-    """One training step under the default ``PipelineConfig`` (fast math,
-    16×16 tiles, the default budgets) against the JAX package's step on its
-    stream backend, with ``tests/test_torch_train.py::TestTrainStep``'s
-    tolerances but one: a parameter's step, read as new − old parameter,
-    may differ by one ulp of the new parameter beyond 1e-5 of the largest
-    step (both packages round p − step to f32; on this scene the same step
-    in exact mode differs by as much)."""
-    from mvs_gaussian_splatting_tpu.train.config import \
-        OptimizationConfig as JOptimizationConfig
-    from mvs_gaussian_splatting_tpu_torch.train.config import \
-        OptimizationConfig
-
-    p, mu, nu, aux = scene_state(180, 256, seed=15)
-    jcam, tcam = _camera()
-    gt = np.random.RandomState(16).rand(3, H, W).astype(np.float32)
-    bg = np.array([0.2, 0.3, 0.1], np.float32)
-    jcfg = jraster_config_from_pipe(JPipelineConfig())._replace(
-        backend="stream")
-    tcfg = raster_config_from_pipe(PipelineConfig())
-    assert jcfg.fast_math and tcfg.fast_math
-    jstep = jmake_train_step(JOptimizationConfig(), jcfg, 4.2)
-    jp, jadam, jaux = jax_state(p, mu, nu, aux, count=20)
-    jnew, jst, _, jm = jstep(jp, jadam, jaux, jcam, jnp.asarray(gt),
-                             jnp.asarray(bg), jnp.int32(21),
-                             jnp.asarray(True), width=W, height=H,
-                             sh_degree=3, render_n=192)
-    tstep = make_train_step(OptimizationConfig(), tcfg, 4.2)
-    tp, tadam, taux = torch_state(p, mu, nu, aux, count=20)
-    tnew, tst, _, tm = tstep(tp, tadam, taux, tcam, torch.tensor(gt),
-                             torch.tensor(bg), 21, True, width=W, height=H,
-                             sh_degree=3, render_n=192)
-    assert abs(float(tm.loss) - float(jm.loss)) <= 1e-5
-    for k in ("n_visible", "overflow_tiles", "overflow_capacity",
-              "instance_load", "nonfinite_grad_rows"):
-        assert int(getattr(tm, k)) == int(getattr(jm, k)), k
-    gaps, steps = {}, {}
-    for k in FIELDS:
-        gj = np.asarray(getattr(jst.mu, k)) - 0.9 * mu[k]
-        gt_ = getattr(tst.mu, k).numpy() - 0.9 * mu[k]
-        gaps[k] = rel_gap(gt_[:180], gj[:180])
-        np.testing.assert_allclose(getattr(tst.nu, k).numpy(),
-                                   np.asarray(getattr(jst.nu, k)),
-                                   rtol=1e-4, atol=1e-12, err_msg=k)
-        # the step read back as new − old parameter carries the rounding of
-        # the new parameter: 1e-5 of the largest step plus one ulp of it
-        new_j = np.asarray(getattr(jnew, k))
-        step_j, step_t = new_j - p[k], getattr(tnew, k).numpy() - p[k]
-        excess = (np.abs(step_t - step_j) - np.spacing(np.abs(new_j))
-                  ) / np.abs(step_j).max()
-        steps[k] = float(excess.max())
-    print("default-config step: gradient gaps " + ", ".join(
-        f"{k} {v:.1e}" for k, v in gaps.items()) + "; step gaps beyond an "
-        "ulp " + ", ".join(f"{k} {v:.1e}" for k, v in steps.items()))
-    assert max(steps.values()) <= 1e-5
-    assert max(gaps.values()) <= 2e-5

@@ -163,42 +163,6 @@ def _jax_render_grads(jp, ndc, jcam, bg, w_img, w_t, *, cfg):
     return jax.grad(loss, argnums=(0, 1))(jp, ndc)
 
 
-class TestRenderGradients:
-    def test_render_grads_match_jax(self, jax_stream_interpret):
-        n = 200
-        d = random_model(n, seed=11)
-        jcam, tcam = cameras()
-        rng = np.random.RandomState(12)
-        w_img = rng.randn(3, H, W).astype(np.float32)
-        w_t = rng.randn(H, W).astype(np.float32)
-        bg = np.array([0.1, 0.2, 0.3], np.float32)
-        cfg_kw = dict(tile_w=32, tile_h=16, max_tiles_per_gaussian=64,
-                      tier_budgets=(4, 12), tier_fracs=(0.25, 0.1))
-        gp_j, gndc_j = _jax_render_grads(
-            JParams(**{k: jnp.asarray(v) for k, v in d.items()}),
-            jnp.zeros((n, 2)), jcam, jnp.asarray(bg), jnp.asarray(w_img),
-            jnp.asarray(w_t),
-            cfg=jrast.RasterConfig(backend="stream", **cfg_kw))
-
-        tp = params_from_numpy(d, "cpu")
-        tp = type(tp)(*[None if a is None else a.requires_grad_()
-                        for a in tp])
-        ndc = torch.zeros((n, 2), requires_grad=True)
-        out = render(tcam, W, H, tp, torch.tensor(bg), sh_degree=3,
-                     ndc_offset=ndc, raster_config=RasterConfig(**cfg_kw))
-        loss = ((out["render"] * torch.tensor(w_img)).sum()
-                + (out["final_T"] * torch.tensor(w_t)).sum())
-        loss.backward()
-        assert int(out["overflow_tiles"]) == 0
-        gaps = {k: rel_gap(getattr(tp, k).grad.numpy(),
-                           np.asarray(getattr(gp_j, k))) for k in d}
-        gaps["ndc_offset"] = rel_gap(ndc.grad.numpy(), np.asarray(gndc_j))
-        print("render grads vs JAX: " + ", ".join(
-            f"{k} {v:.1e}" for k, v in gaps.items()))
-        assert max(gaps.values()) <= REL
-
-
-
 # ---- float64 evaluations of the same operator (ROADMAP C11) ----
 
 F64 = torch.float64
@@ -324,31 +288,6 @@ def _render_f64_gaps():
     return gaps
 
 
-@pytest.mark.parametrize("level", ["vjp", "render"])
-def test_both_packages_near_f64(level, jax_stream_interpret):
-    """Each package's float32 gradients within F64_REL of the float64
-    evaluation; the one-step tests of ``test_torch_train.py`` and
-    ``test_torch_grow_step.py`` hold the steps the same way."""
-    gaps = _vjp_f64_gaps() if level == "vjp" else _render_f64_gaps()
-    print(f"{level} to f64 (JAX / port): " + ", ".join(
-        f"{k} {j:.2e} / {t:.2e}" for k, j, t in gaps))
-    for k, j, t in gaps:
-        assert j <= F64_REL[level] and t <= F64_REL[level], (k, j, t)
-
-
-@pytest.mark.parametrize("level", ["16x16", "32x16", "24x10", "8x4",
-                                   "render"])
-def test_port_no_farther_from_f64_than_jax(level, jax_stream_interpret):
-    """ROADMAP C13, level by level: the composite's VJP at each tile shape
-    (the worst row) and the render (each leaf); the one-step tests of
-    ``test_torch_train.py`` and ``test_torch_grow_step.py`` hold the
-    vanilla and the grow step the same way."""
-    gaps = (_render_f64_gaps() if level == "render"
-            else [g for g in _vjp_f64_gaps() if g[0] == level])
-    assert gaps
-    for k, j, t in gaps:
-        assert t <= max(C13_FACTOR * j, C13_FLOOR), (k, j, t)
-
 def _camera_at_origin(width=64, height=64):
     fovx = math.radians(60.0)
     fovy = graphics.focal2fov(graphics.fov2focal(fovx, width), height)
@@ -363,28 +302,3 @@ def _camera_at_origin(width=64, height=64):
 # centre, just behind the camera, on the near-cull boundary
 BAD_POSITIONS = [[0.1, 0.1, -1e-7], [0.0, 0.0, 0.0], [0.05, -0.05, -0.01],
                  [0.0, 0.1, 0.2]]
-
-
-@pytest.mark.parametrize("bad", BAD_POSITIONS)
-def test_preprocess_grads_finite_at_camera_plane(bad):
-    cam = _camera_at_origin()
-    means = torch.tensor([[0.0, 0.0, 5.0], bad], requires_grad=True)
-    scales = torch.full((2, 3), 0.1, requires_grad=True)
-    quats = torch.tensor([[1.0, 0, 0, 0]] * 2, requires_grad=True)
-    opac = torch.tensor([0.9, 0.9], requires_grad=True)
-    shs = torch.zeros((2, 16, 3))
-    shs[:, 0] = 0.7
-    shs.requires_grad_()
-    p = preprocess(means, opac, cam, 64, 64, scales=scales, rotations=quats,
-                   shs=shs, sh_degree=3)
-    mask = p.mask[:, None]
-    # touch every differentiable output the way the composite would
-    loss = (torch.where(mask, p.xy, 0.0).sum()
-            + torch.where(mask, p.conic, 0.0).sum()
-            + torch.where(mask, p.rgb, 0.0).sum()
-            + torch.where(p.mask, p.opacity, 0.0).sum()
-            + torch.where(p.mask, p.depth, 0.0).sum())
-    loss.backward()
-    for t in (means, scales, quats, opac, shs):
-        assert bool(torch.isfinite(t.grad).all()), t.grad
-    assert bool(p.mask[0]) and not bool(p.mask[1])

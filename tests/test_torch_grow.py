@@ -16,12 +16,10 @@ import numpy as np
 import pytest
 import torch
 
-from mvs_gaussian_splatting_tpu.models import densify as jdensify
 from mvs_gaussian_splatting_tpu.models import gaussians as jgauss
 from mvs_gaussian_splatting_tpu.models import grow as jgrow
 from mvs_gaussian_splatting_tpu.train import optim as joptim
 from mvs_gaussian_splatting_tpu.utils import sphere as jsphere
-from mvs_gaussian_splatting_tpu_torch.models import densify as tdensify
 from mvs_gaussian_splatting_tpu_torch.models import gaussians as tgauss
 from mvs_gaussian_splatting_tpu_torch.models import grow as tgrow
 from mvs_gaussian_splatting_tpu_torch.train import optim as toptim
@@ -174,62 +172,6 @@ AUGMENT_MODES = {
 }
 
 
-@pytest.mark.parametrize("mode", list(AUGMENT_MODES))
-def test_speculative_augment(mode):
-    flags = AUGMENT_MODES[mode]
-    capacity, spec = 96, 16
-    p, _, _, aux = grow_state(70, capacity, seed=3, flags=flags)
-    jcfg, tcfg = configs(flags)
-    n_aug = capacity + spec
-    key = jax.random.PRNGKey(4)
-    noise = np.array(jax.random.normal(key, (n_aug, 3)))
-    grads = (aux["xyz_grad_accum"] / aux["denom"]).astype(np.float32)
-    thr, extent, pdense = 2e-4, 3.0, 0.01
-    names = ("xyz", "scaling", "rotation", "f_dc", "f_rest", "opacity")
-    w = {k: np.random.RandomState(5).randn(
-        n_aug + spec, *p[k].shape[1:]).astype(np.float32) for k in names}
-    jaux = jgauss.GaussianAux(**{k: jnp.asarray(v) for k, v in aux.items()})
-
-    def jloss(params):
-        out = jgrow.speculative_augment(
-            params, jaux, jnp.asarray(grads), jnp.asarray(DIRS), jcfg, thr,
-            extent, pdense, spec, key)
-        return sum((out[k] * w[k]).sum() for k in names), out
-
-    (_, jout), jg = jax.jit(jax.value_and_grad(jloss, has_aux=True))(
-        jgauss.GaussianParams(**{k: jnp.asarray(v) for k, v in p.items()}))
-    tp = tgauss.GaussianParams(**{k: torch.tensor(v, requires_grad=True)
-                                  for k, v in p.items()})
-    tout = tgrow.speculative_augment(
-        tp, tgauss.aux_from_numpy(aux, "cpu"), torch.tensor(grads),
-        torch.tensor(DIRS), tcfg, thr, extent, pdense, spec, noise=noise)
-    sum((tout[k] * torch.tensor(w[k])).sum() for k in names).backward()
-    # indices and masks equal
-    for k in ("grow_idx", "grow_ok", "alive"):
-        np.testing.assert_array_equal(tout[k].numpy(), np.asarray(jout[k]),
-                                      err_msg=k)
-    assert int(tout["grow_ok"].sum()) == (
-        spec if ("grow_dir" in flags or "continous_dir" in flags) else 0)
-    assert int(tout["alive"][n_aug:].sum()) == (
-        spec if ("learn_split_distance" in flags
-                 or "learn_split_scale" in flags) else 0)
-    # the rows: within 1e-6 of each output's scale
-    for k in names:
-        assert tout[k].shape == jout[k].shape, k
-        assert rel_gap(tout[k].detach().numpy(), jout[k]) <= REL, k
-    # gradients through the gathers (repeated, clipped indices) and the
-    # in-place split, summed in other orders: 1e-6 of each leaf's scale
-    for k in p:
-        want = np.asarray(getattr(jg, k))
-        got = getattr(tp, k).grad
-        got = np.zeros_like(want) if got is None else got.numpy()
-        assert rel_gap(got, want) <= REL, k
-    for k in ("dirs_prob", "conti_dirs", "grow_dist", "split_distance",
-              "split_scale"):
-        if k in p:
-            assert np.abs(getattr(tp, k).grad.numpy()).max() > 0, k
-
-
 def _assert_state(jout, tout):
     jinfo, tinfo = jout[4], tout[4]
     assert {k: int(v) for k, v in jinfo.items()} == tinfo
@@ -248,28 +190,6 @@ def _assert_state(jout, tout):
                                            atol=1e-6, err_msg=k)
 
 
-@pytest.mark.parametrize("flags", [
-    {"grow_dir": True, "grow_distance": True},
-    {"continous_dir": True},
-    {"continous_dir": True, "prob_notreinit": True},
-], ids=["discrete", "continuous", "continuous_notreinit"])
-def test_densify_grow(flags):
-    capacity = 80
-    p, mu, nu, aux = grow_state(60, capacity, seed=6, flags=flags)
-    jcfg, tcfg = configs(flags)
-    key = jax.random.PRNGKey(7)
-    fresh = np.asarray(jax.random.normal(key, (capacity, 3)))
-    jp, jadam, jaux = jax_state(p, mu, nu, aux)
-    jout = jax.jit(jgrow.densify_grow, static_argnums=(6, 7))(
-        jp, jadam.mu, jadam.nu, jaux, jnp.asarray(DIRS), key, jcfg, 2e-4)
-    tp, tadam, taux = torch_state(p, mu, nu, aux)
-    tout = tgrow.densify_grow(tp, tadam.mu, tadam.nu, taux,
-                              torch.tensor(DIRS), tcfg, 2e-4, fresh=fresh)
-    # more hot rows than free slots: the shortfall is counted
-    assert tout[4]["n_grown"] == 20 and tout[4]["n_dropped"] > 0
-    _assert_state(jout, tout)
-
-
 GROW_ROUNDS = {
     "discrete_noise": {"grow_dir": True},
     "continuous_learned": {"continous_dir": True, "learn_split_distance": True,
@@ -279,72 +199,3 @@ GROW_ROUNDS = {
                              "prob_notreinit": True, "split_notreinit": True,
                              "symmetric_split": True},
 }
-
-
-# grow_dir with grow_distance and learn_split_distance, the deterministic
-# round, is held in tests/test_torch_grow_loop.py
-@pytest.mark.parametrize("mode", list(GROW_ROUNDS))
-def test_densify_and_prune_grow(mode):
-    flags = GROW_ROUNDS[mode]
-    capacity = 128
-    p, mu, nu, aux = grow_state(70, capacity, seed=8, flags=flags)
-    p["scaling"][::2] = np.log(0.5)         # large: split candidates
-    jcfg, tcfg = configs(flags)
-    key = jax.random.PRNGKey(9)
-    _, k_reinit, k_split = jax.random.split(key, 3)
-    k1, k2 = jax.random.split(k_split)
-    noise = (np.asarray(jax.random.normal(k1, (capacity, 3))),
-             np.asarray(jax.random.normal(k2, (capacity, 3))))
-    fresh = np.asarray(jax.random.normal(k_reinit, (capacity, 3)))
-    cfg_kw = dict(grad_threshold=2e-4, min_opacity=0.005, percent_dense=0.01,
-                  symmetric_split=flags.get("symmetric_split", False))
-    jp, jadam, jaux = jax_state(p, mu, nu, aux)
-    jout = jax.jit(jdensify.densify_and_prune_grow,
-                   static_argnums=(5, 6, 7))(
-        jp, jadam.mu, jadam.nu, jaux, key, 10.0,
-        jdensify.DensifyConfig(**cfg_kw), jcfg, jnp.asarray(DIRS),
-        jnp.asarray(True))
-    tp, tadam, taux = torch_state(p, mu, nu, aux)
-    tout = tdensify.densify_and_prune_grow(
-        tp, tadam.mu, tadam.nu, taux, None, 10.0,
-        tdensify.DensifyConfig(**cfg_kw), tcfg, torch.tensor(DIRS), True,
-        noise=noise, fresh=fresh)
-    info = tout[4]
-    assert info["n_cloned"] > 0 and info["n_split"] > 0
-    assert info["n_pruned"] > 0 and info["n_dropped"] > 0
-    _assert_state(jout, tout)
-
-
-@pytest.mark.parametrize("flags", [
-    ["--grow_dir"],
-    ["--continous_dir", "--grow_distance", "--learn_split_distance",
-     "--learn_split_scale"],
-], ids=["discrete", "continuous_learned_split"])
-def test_cli_trains_grow_mode(tmp_path, flags):
-    """``cli/train.py`` trains in grow mode on the CPU: speculative steps
-    from past the first opacity reset (10), grow rounds at 20, parameters
-    and losses finite, the research extras in the checkpoint."""
-    from test_torch_train import write_synthetic_scene
-
-    from mvs_gaussian_splatting_tpu_torch.cli.train import main
-    from mvs_gaussian_splatting_tpu_torch.train import checkpoint as tckpt
-    scene = write_synthetic_scene(tmp_path, 60)
-    model = tmp_path / "model"
-    params, aux, _, hist = main([
-        "-s", scene, "-m", str(model), "--device", "cpu", "--iterations",
-        "22", "--densify_from_iter", "5", "--densification_interval", "10",
-        "--opacity_reset_interval", "10", "--test_iterations", "0",
-        "--checkpoint_iterations", "22", "--log_every", "2", "--tile_w", "32",
-        "--tile_h", "16", "--spec_capacity", "32", *flags])
-    losses = [v for _, v in hist["loss"]]
-    assert len(losses) == 11 and all(np.isfinite(losses))
-    rounds = {d["iteration"]: d for d in hist["densify"]}
-    assert rounds[20]["n_cloned"] > 0           # a grow round committed
-    assert all(bool(torch.isfinite(a).all()) for a in params if a is not None)
-    loaded = tckpt.load_checkpoint(str(model / "chkpnt22.npz"), "cpu")[0]
-    extras = {"--grow_dir": "dirs_prob", "--continous_dir": "conti_dirs",
-              "--grow_distance": "grow_dist",
-              "--learn_split_distance": "split_distance",
-              "--learn_split_scale": "split_scale"}
-    for flag, name in extras.items():
-        assert (getattr(loaded, name) is not None) == (flag in flags), name

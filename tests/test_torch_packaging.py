@@ -112,12 +112,15 @@ NO_JAX_FILES = sorted(
      for p in (ROOT / PACKAGE / d).glob("*.py")]
     + [f"{PACKAGE}/cli/mvs_train.py", f"{PACKAGE}/cli/view.py"])
 BANNED = {"jax", "jaxlib", "flax", "optax", "mvs_gaussian_splatting_tpu"}
+# the benches, profiles and entry points (checked inside the test below,
+# which keeps this file's count of tests)
+TOOLS = sorted(p.relative_to(ROOT).as_posix()
+               for p in (ROOT / PACKAGE / "tools").glob("*.py"))
 
 
-@pytest.mark.parametrize("rel", NO_JAX_FILES)
-def test_imports_no_jax(rel):
-    """No import, at the top or inside a function, names JAX, flax, optax
-    or a module of the JAX package."""
+def banned_imports(rel):
+    """The imports of ``rel``, at the top or inside a function, that name
+    JAX, flax, optax or a module of the JAX package."""
     found = []
     for node in ast.walk(ast.parse((ROOT / rel).read_text())):
         if isinstance(node, ast.Import):
@@ -127,13 +130,28 @@ def test_imports_no_jax(rel):
         else:
             continue
         found += [n for n in names if n.split(".")[0] in BANNED]
+    return found
+
+
+@pytest.mark.parametrize("rel", NO_JAX_FILES)
+def test_imports_no_jax(rel):
+    """No import, at the top or inside a function, names JAX, flax, optax
+    or a module of the JAX package."""
+    found = banned_imports(rel)
     assert not found, found
 
 
 def test_new_modules_import_with_jax_blocked():
-    """The modules import, and the CLIs parse their flags, in a process
-    where importing JAX, flax, optax or the JAX package fails."""
-    modules = [rel[:-3].replace("/", ".") for rel in NO_JAX_FILES]
+    """The modules and the tools name no JAX module in any import, import,
+    and their CLIs parse their flags, in a process where importing JAX,
+    flax, optax or the JAX package fails; every tool runs on ``cuda``
+    unless told otherwise."""
+    assert len(TOOLS) >= 10
+    found = {rel: banned_imports(rel) for rel in TOOLS}
+    assert not any(found.values()), found
+    tools = [rel[:-3].replace("/", ".") for rel in TOOLS
+             if not rel.endswith("__init__.py")]
+    modules = [rel[:-3].replace("/", ".") for rel in NO_JAX_FILES] + tools
     code = (
         "import sys\n"
         f"for name in {sorted(BANNED)!r}:\n"
@@ -142,11 +160,21 @@ def test_new_modules_import_with_jax_blocked():
         f"for m in {modules!r}:\n"
         "    importlib.import_module(m)\n"
         f"from {PACKAGE}.cli import mvs_train, view\n"
-        "for cli in (mvs_train, view):\n"
+        "import contextlib, io\n"
+        "clis = [mvs_train, view] + [importlib.import_module(m) for m in "
+        f"{tools!r}]\n"
+        "for cli in clis:\n"
+        "    if not hasattr(cli, 'main'):\n"
+        "        continue\n"
+        "    text = io.StringIO()\n"
         "    try:\n"
-        "        cli.main(['--help'])\n"
+        "        with contextlib.redirect_stdout(text):\n"
+        "            cli.main(['--help'])\n"
         "    except SystemExit as e:\n"
         "        assert e.code == 0\n"
+        "    assert cli.__name__.endswith(('view', 'plot_validation')) or "
+        "'(default cuda)' in ' '.join(text.getvalue().split()), "
+        "cli.__name__\n"
         "assert not any(k.split('.')[0] in "
         f"{sorted(BANNED)!r} and sys.modules[k] is not None "
         "for k in sys.modules)\n")

@@ -25,22 +25,15 @@ import numpy as np
 import pytest
 import torch
 
-from mvs_gaussian_splatting_tpu.models.gaussians import \
-    GaussianParams as JParams
 from mvs_gaussian_splatting_tpu.ops import binning as jbin
 from mvs_gaussian_splatting_tpu.ops.pallas.composite import composite_pallas
 from mvs_gaussian_splatting_tpu.ops.preprocess import CameraView as JCamera
 from mvs_gaussian_splatting_tpu.ops.preprocess import \
     preprocess as jpreprocess
 from mvs_gaussian_splatting_tpu.utils import graphics
-from mvs_gaussian_splatting_tpu_torch.models.gaussians import \
-    params_from_numpy
 from mvs_gaussian_splatting_tpu_torch.ops import binning as tbin
-from mvs_gaussian_splatting_tpu_torch.ops import composite as tcomp
 from mvs_gaussian_splatting_tpu_torch.ops import preprocess as tpre
 from mvs_gaussian_splatting_tpu_torch.ops.preprocess import CameraView
-from mvs_gaussian_splatting_tpu_torch.ops.rasterize import RasterConfig
-from mvs_gaussian_splatting_tpu_torch.ops.render import render
 
 torch.set_num_threads(1)
 
@@ -180,99 +173,6 @@ def _jax_padded_vjp_tiles(planes, rgb, valid, counts, bg, cts, tiles_x,
     return out, pull(cts)
 
 
-class TestPaddedComposite:
-    @pytest.mark.parametrize("holes", [False, True])
-    def test_plain_matches_pallas_interpret(self, holes):
-        k = 128
-        planes, rgb, valid, counts = tables(2, k, holes)
-        t, p = counts.shape[0], 256
-        bg = np.array([0.2, 0.4, 0.1], np.float32)
-        rng = np.random.RandomState(3)
-        g_out = rng.randn(t, p, 3).astype(np.float32)
-        g_tfin = rng.randn(t, p).astype(np.float32)
-        (out_j, tfin_j), (gpl_j, grgb_j, gbg_j) = _jax_padded_vjp(
-            [jnp.asarray(a) for a in planes], jnp.asarray(rgb),
-            jnp.asarray(valid), jnp.asarray(counts), jnp.asarray(bg), k,
-            (jnp.asarray(g_out), jnp.asarray(g_tfin)))
-
-        tp = torch.from_numpy(np.stack(planes))
-        args = (tp, torch.from_numpy(rgb), torch.from_numpy(valid),
-                torch.from_numpy(counts), torch.from_numpy(bg), TILES_X, 16,
-                16)
-        out, tfin = tcomp.composite_padded_plain(*args)
-        gap = max(float(np.abs(out.numpy() - np.asarray(out_j)).max()),
-                  float(np.abs(tfin.numpy() - np.asarray(tfin_j)).max()))
-        gpl, grgb, gbg = tcomp.composite_padded_bwd_plain(
-            *args, out, tfin, torch.from_numpy(g_out),
-            torch.from_numpy(g_tfin))
-        gaps = [rel_gap(gpl[r].numpy(), gpl_j[r]) for r in range(6)]
-        gaps.append(rel_gap(grgb.numpy(), grgb_j))
-        gaps.append(rel_gap(gbg.numpy(), gbg_j))
-        print(f"holes {holes}: forward {gap:.2e}, gradients "
-              + " ".join(f"{g:.1e}" for g in gaps))
-        assert gap <= TOL and max(gaps) <= REL
-        # padded and invalid slots: exact zeros, in the port and in JAX
-        dead = valid == 0
-        assert dead.any() and (~dead).any()
-        assert not gpl.numpy()[:, dead].any() and not grgb.numpy()[dead].any()
-        assert not np.asarray(gpl_j)[:, dead].any()
-        # and the JAX package's own jnp tile compositor agrees
-        out_jnp, _ = jrast.composite_tiles_jnp(
-            jnp.stack(planes[:2], -1), jnp.stack(planes[2:5], -1),
-            jnp.asarray(rgb), jnp.asarray(planes[5]), jnp.asarray(valid > 0),
-            jnp.arange(t), TILES_X, 16, 16, jnp.asarray(bg))
-        assert float(np.abs(out.numpy().transpose(0, 2, 1)
-                            - np.asarray(out_jnp)).max()) <= TOL
-
-    # 24×10 and 8×4: tiles of a part-filled and of a single 8×4 warp block,
-    # which B5 takes since its redesign
-    @pytest.mark.parametrize("geometry", [(24, 10), (8, 4)])
-    def test_plain_bwd_matches_pallas_interpret_odd_tiles(self, geometry):
-        tw, th = geometry
-        k = 128
-        s = tcomp.random_tables(5, tiles_x=3, tiles_y=2, tile_w=tw,
-                                tile_h=th, k=k)
-        t, p = s["counts"].shape[0], tw * th
-        rng = np.random.RandomState(6)
-        g_out = rng.randn(t, p, 3).astype(np.float32)
-        g_tfin = rng.randn(t, p).astype(np.float32)
-        (out_j, tfin_j), (gpl_j, grgb_j, gbg_j) = _jax_padded_vjp_tiles(
-            [jnp.asarray(a) for a in s["planes"]], jnp.asarray(s["rgb"]),
-            jnp.asarray(s["valid"]), jnp.asarray(s["counts"]),
-            jnp.asarray(s["bg"]), (jnp.asarray(g_out), jnp.asarray(g_tfin)),
-            s["tiles_x"], tw, th, k)
-        args = [torch.from_numpy(s[key]) for key in
-                ("planes", "rgb", "valid", "counts", "bg")] + [
-            s["tiles_x"], tw, th]
-        out, tfin = tcomp.composite_padded_plain(*args)
-        gap = max(float(np.abs(out.numpy() - np.asarray(out_j)).max()),
-                  float(np.abs(tfin.numpy() - np.asarray(tfin_j)).max()))
-        gpl, grgb, gbg = tcomp.composite_padded_bwd_plain(
-            *args, out, tfin, torch.from_numpy(g_out),
-            torch.from_numpy(g_tfin))
-        gaps = [rel_gap(gpl[r].numpy(), gpl_j[r]) for r in range(6)]
-        gaps += [rel_gap(grgb.numpy(), grgb_j), rel_gap(gbg.numpy(), gbg_j)]
-        print(f"{tw}x{th}: forward {gap:.2e}, gradients "
-              + " ".join(f"{g:.1e}" for g in gaps))
-        assert gap <= TOL and max(gaps) <= REL
-        dead = s["valid"] == 0
-        assert dead.any()
-        assert not gpl.numpy()[:, dead].any() and not grgb.numpy()[dead].any()
-
-    def test_autograd_takes_plain_versions_on_cpu(self):
-        planes, rgb, valid, counts = tables(4)
-        tp = torch.from_numpy(np.stack(planes)).requires_grad_()
-        trgb = torch.from_numpy(rgb).requires_grad_()
-        before = (tcomp.launches, tcomp.bwd_launches)
-        out, tfin = tcomp.composite_padded(
-            tp, trgb, torch.from_numpy(valid), torch.from_numpy(counts),
-            torch.tensor([0.1, 0.2, 0.3]), TILES_X, 16, 16)
-        (out.sum() + tfin.sum()).backward()
-        assert (tcomp.launches, tcomp.bwd_launches) == before
-        assert float(tp.grad[0].abs().max()) > 0
-        assert float(trgb.grad.abs().max()) > 0
-
-
 @functools.partial(jax.jit, static_argnames=("cfg",))
 def _jax_render_grads(jp, ndc, jcam, bg, w_img, w_t, *, cfg):
     def loss(p, off):
@@ -281,84 +181,3 @@ def _jax_render_grads(jp, ndc, jcam, bg, w_img, w_t, *, cfg):
         return ((out["render"] * w_img).sum() + (out["final_T"] * w_t).sum(),
                 (out["render"], out["final_T"]))
     return jax.grad(loss, argnums=(0, 1), has_aux=True)(jp, ndc)
-
-
-@pytest.mark.parametrize("backend", ["pallas", "jnp"])
-def test_rasterize_matches_jax_jnp(backend):
-    """Image, final_T and every parameter's gradient (and the viewspace
-    statistic's) of a render through the port's padded backend against the
-    JAX package's ``backend="jnp"``."""
-    n = 160
-    d = random_model(n, seed=5)
-    jcam, tcam = cameras()
-    rng = np.random.RandomState(6)
-    w_img = rng.randn(3, H, W).astype(np.float32)
-    w_t = rng.randn(H, W).astype(np.float32)
-    bg = np.array([0.1, 0.2, 0.3], np.float32)
-    cfg_kw = dict(max_tiles_per_gaussian=32, tile_capacity=128,
-                  tile_batch=8)
-    (gp_j, gndc_j), (img_j, tfin_j) = _jax_render_grads(
-        JParams(**{k: jnp.asarray(v) for k, v in d.items()}),
-        jnp.zeros((n, 2)), jcam, jnp.asarray(bg), jnp.asarray(w_img),
-        jnp.asarray(w_t), cfg=jrast.RasterConfig(backend="jnp", **cfg_kw))
-
-    tp = params_from_numpy(d, "cpu")
-    tp = type(tp)(*[None if a is None else a.requires_grad_() for a in tp])
-    ndc = torch.zeros((n, 2), requires_grad=True)
-    before = (tcomp.launches, tcomp.bwd_launches)
-    out = render(tcam, W, H, tp, torch.tensor(bg), sh_degree=3,
-                 ndc_offset=ndc,
-                 raster_config=RasterConfig(backend=backend, **cfg_kw))
-    loss = ((out["render"] * torch.tensor(w_img)).sum()
-            + (out["final_T"] * torch.tensor(w_t)).sum())
-    loss.backward()
-    assert (tcomp.launches, tcomp.bwd_launches) == before
-    gap = max(float(np.abs(out["render"].detach().numpy()
-                           - np.asarray(img_j)).max()),
-              float(np.abs(out["final_T"].detach().numpy()
-                           - np.asarray(tfin_j)).max()))
-    gaps = {k: rel_gap(getattr(tp, k).grad.numpy(),
-                       np.asarray(getattr(gp_j, k))) for k in d}
-    gaps["ndc_offset"] = rel_gap(ndc.grad.numpy(), np.asarray(gndc_j))
-    print(f"{backend}: image {gap:.1e}; grads " + ", ".join(
-        f"{k} {v:.1e}" for k, v in gaps.items()))
-    assert gap <= TOL and max(gaps.values()) <= REL
-    assert int(out["overflow_capacity"]) == 0
-    assert int(out["instance_load"]) > 0
-    assert out["tier_need_counts"].numel() == 0
-
-
-def test_cli_train_and_render_pallas_backend(tmp_path):
-    """A short ``cli/train.py --backend pallas --device cpu`` run (finite
-    losses and parameters), then ``cli/render.py --backend pallas`` of its
-    test view, equal to the stream backend's render of the same model."""
-    from PIL import Image
-
-    from mvs_gaussian_splatting_tpu_torch.cli.render import \
-        main as render_main
-    from mvs_gaussian_splatting_tpu_torch.cli.train import main
-    from test_torch_train import write_synthetic_scene
-
-    scene = write_synthetic_scene(tmp_path)
-    model = tmp_path / "model"
-    params, aux, _, hist = main([
-        "-s", scene, "-m", str(model), "--eval",
-        "--backend", "pallas", "--device", "cpu", "--iterations", "6",
-        "--test_iterations", "6", "--save_iterations", "6",
-        "--log_every", "2", "--max_tiles_per_gaussian", "32",
-        "--tile_capacity", "128"])
-    losses = [v for _, v in hist["loss"]]
-    assert len(losses) == 3 and all(np.isfinite(losses))
-    assert all(bool(torch.isfinite(a).all()) for a in params
-               if a is not None)
-    assert "6" in {str(k) for k in hist["psnr_test"]}
-    pngs = {}
-    for backend in ("pallas", "stream"):
-        clipped = render_main(["-m", str(model), "-s", scene, "--skip_train",
-                               "--device", "cpu", "--backend", backend,
-                               "--tile_capacity", "256"])
-        assert clipped == {"test": {"views": 2, "overflow_tiles": 0,
-                                    "overflow_capacity": 0}}
-        out = model / "test" / "ours_6" / "renders" / "00000.png"
-        pngs[backend] = np.asarray(Image.open(out), np.int16)
-    assert np.abs(pngs["pallas"] - pngs["stream"]).max() <= 1

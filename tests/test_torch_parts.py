@@ -133,9 +133,13 @@ def jax_reference(tile_w: int, tile_h: int):
             np.asarray(img), np.asarray(tfin))
 
 
-@pytest.mark.parametrize("mode", ["stream", "stream_fast", "pallas"])
-@pytest.mark.parametrize("geometry", [(64, 32), (48, 48)])
-def test_render_at_large_tiles_matches_jax(geometry, mode):
+# the tile shapes; the second, 48×48, runs in test_torch_parts_48.py
+GEOMETRIES = [pytest.param((64, 32), id="geometry0"),
+              pytest.param((48, 48), id="geometry1")]
+MODES = ["stream", "stream_fast", "pallas"]
+
+
+def check_large_tiles(geometry, mode):
     """Image, final_T and every parameter's gradient of a render through
     the port's composites at a tile of several parts against the JAX
     package's jnp render of the same tiles; the CPU launches no kernel."""
@@ -170,20 +174,7 @@ def test_render_at_large_tiles_matches_jax(geometry, mode):
     assert gap <= tol and max(gaps.values()) <= rel
 
 
-def test_tile_shape_is_part_of_the_operator():
-    """The JAX package's image at 64×32 tiles differs from its image at
-    16×16 by more than the 2e-4 a kernel is held to (splats reach past 3
-    sigma within a larger tile); the port's render at 16×16 follows the
-    JAX package's there, as at 64×32 above."""
-    _, img64, _ = jax_reference(64, 32)
-    _, img16, _ = jax_reference(16, 16)
-    shift = float(np.abs(img64 - img16).max())
-    model, _, tcam, _ = scene()
-    with torch.no_grad():
-        out = render(tcam, W, H, params_from_numpy(model, "cpu"),
-                     torch.tensor([0.1, 0.2, 0.3]), sh_degree=3,
-                     raster_config=RasterConfig(backend="stream",
-                                                **config(16, 16)))
-    gap = float(np.abs(out["render"].numpy() - img16).max())
-    print(f"JAX 64x32 vs 16x16: {shift:.1e}; port vs JAX at 16x16 {gap:.1e}")
-    assert shift > 10 * TOL and gap <= TOL
+@pytest.mark.parametrize("mode", MODES)
+@pytest.mark.parametrize("geometry", GEOMETRIES[:1])
+def test_render_at_large_tiles_matches_jax(geometry, mode):
+    check_large_tiles(geometry, mode)

@@ -21,21 +21,11 @@ import torch
 
 from mvs_gaussian_splatting_tpu.models.gaussians import \
     GaussianParams as JParams
-from mvs_gaussian_splatting_tpu.ops.pallas.stream import \
-    composite_stream as jcomposite
 from mvs_gaussian_splatting_tpu.ops.preprocess import CameraView as JCamera
-from mvs_gaussian_splatting_tpu.ops.raster_ref import \
-    rasterize_reference as jref
 from mvs_gaussian_splatting_tpu.utils import graphics
-from mvs_gaussian_splatting_tpu_torch.models.gaussians import (
-    activated, params_from_numpy)
+from mvs_gaussian_splatting_tpu_torch.models.gaussians import params_from_numpy
 from mvs_gaussian_splatting_tpu_torch.ops import rasterize as trast
-from mvs_gaussian_splatting_tpu_torch.ops import stream as tstream
-from mvs_gaussian_splatting_tpu_torch.ops.preprocess import (CameraView,
-                                                             Processed,
-                                                             preprocess)
-from mvs_gaussian_splatting_tpu_torch.ops.raster_ref import \
-    rasterize_reference
+from mvs_gaussian_splatting_tpu_torch.ops.preprocess import CameraView
 from mvs_gaussian_splatting_tpu_torch.ops.render import render
 
 torch.set_num_threads(1)
@@ -116,25 +106,6 @@ def _stream_inputs(seed, n=250):
             "bg": np.array([0.3, 0.1, 0.7], np.float32)}
 
 
-class TestCompositePlain:
-    @pytest.mark.parametrize("seed", [0, 1])
-    def test_plain_matches_jax_kernel(self, seed):
-        s = _stream_inputs(seed)
-        out_j, tfin_j = jax.jit(jcomposite, static_argnums=(5, 6, 7, 8))(
-            *(jnp.asarray(s[k]) for k in ("attrs", "seg_start", "counts",
-                                          "bg", "tile_ids")),
-            4, 16, 16, True)
-        out_t, tfin_t = tstream.composite_stream_plain(
-            *(torch.tensor(s[k]) for k in ("attrs", "seg_start", "counts",
-                                           "bg", "tile_ids")), 4, 16, 16)
-        gap_out = float(np.abs(out_t.numpy() - np.asarray(out_j)).max())
-        gap_t = float(np.abs(tfin_t.numpy() - np.asarray(tfin_j)).max())
-        print(f"plain vs JAX kernel (interpret): out {gap_out:.3e}, "
-              f"final_T {gap_t:.3e}")
-        assert gap_out <= TOL and gap_t <= TOL
-        assert int(s["counts"].sum()) > 100
-
-
 def _render_both(case, jax_stream_interpret):
     n = 300
     d = random_model(n, seed=case["seed"])
@@ -212,29 +183,3 @@ class TestRenderSlice:
             with pytest.raises(ValueError, match="unknown backend"):
                 render(tcam, W, H, tp, torch.zeros(3), sh_degree=3,
                        raster_config=trast.RasterConfig(backend=name))
-
-
-class TestOracle:
-    def test_reference_matches_jax_and_stream(self):
-        d = random_model(120, seed=4)
-        jcam, tcam = cameras()
-        tp = params_from_numpy(d, "cpu")
-        s, r, o = activated(tp)
-        col = np.random.RandomState(4).rand(120, 3).astype(np.float32)
-        with torch.no_grad():
-            p = preprocess(tp.xyz, o, tcam, W, H, scales=s, rotations=r,
-                           colors_precomp=torch.tensor(col))
-            bg = torch.tensor([0.2, 0.4, 0.6])
-            img, aux = rasterize_reference(p, W, H, bg, return_aux=True)
-            tiled, taux = trast.rasterize(p, W, H, bg, trast.RasterConfig(
-                max_tiles_per_gaussian=64))
-        pj = type(p)._make(jnp.asarray(v.numpy()) for v in p)
-        from mvs_gaussian_splatting_tpu.ops.preprocess import \
-            Processed as JProcessed
-        img_j = jax.jit(jref, static_argnums=(1, 2))(
-            JProcessed(*pj), W, H, jnp.asarray(bg.numpy()))
-        np.testing.assert_allclose(img.numpy(), np.asarray(img_j), atol=TOL)
-        np.testing.assert_allclose(tiled.numpy(), img.numpy(), atol=TOL)
-        np.testing.assert_allclose(taux["final_T"].numpy(),
-                                   aux["final_T"].numpy(), atol=TOL)
-        assert isinstance(p, Processed)

@@ -10,9 +10,7 @@ where they are used.
 
 import functools
 import importlib
-import json
 import math
-import os
 
 import jax
 import jax.numpy as jnp
@@ -20,33 +18,22 @@ import numpy as np
 import pytest
 import torch
 
-from mvs_gaussian_splatting_tpu.models import densify as jdensify
 from mvs_gaussian_splatting_tpu.models import gaussians as jgauss
 from mvs_gaussian_splatting_tpu.ops.preprocess import CameraView as JCamera
-from mvs_gaussian_splatting_tpu.train import checkpoint as jckpt
 from mvs_gaussian_splatting_tpu.train import optim as joptim
-from mvs_gaussian_splatting_tpu.train.config import OptimizationConfig
-from mvs_gaussian_splatting_tpu.train.step import \
-    make_train_step as jmake_train_step
 from mvs_gaussian_splatting_tpu.utils import graphics
 from mvs_gaussian_splatting_tpu.utils import losses as jlosses
 from mvs_gaussian_splatting_tpu.utils import schedules as jsched
 from mvs_gaussian_splatting_tpu_torch.data.cameras import Camera
 from mvs_gaussian_splatting_tpu_torch.data.colmap import write_pinhole_scene
-from mvs_gaussian_splatting_tpu_torch.models import densify as tdensify
 from mvs_gaussian_splatting_tpu_torch.models import gaussians as tgauss
 from mvs_gaussian_splatting_tpu_torch.ops.preprocess import (CameraView,
                                                              preprocess)
 from mvs_gaussian_splatting_tpu_torch.ops.raster_ref import \
     rasterize_reference
-from mvs_gaussian_splatting_tpu_torch.ops.rasterize import RasterConfig
-from mvs_gaussian_splatting_tpu_torch.ops.render import render
-from mvs_gaussian_splatting_tpu_torch.train import checkpoint as tckpt
 from mvs_gaussian_splatting_tpu_torch.train import optim as toptim
-from mvs_gaussian_splatting_tpu_torch.train.step import make_train_step
 from mvs_gaussian_splatting_tpu_torch.utils import losses as tlosses
 from mvs_gaussian_splatting_tpu_torch.utils import schedules as tsched
-from test_torch_grad import leaves64, loss64, render64
 
 torch.set_num_threads(1)
 
@@ -144,168 +131,6 @@ def torch_state(p, mu, nu, aux, count=0):
             tgauss.aux_from_numpy(aux, "cpu"))
 
 
-class TestOptim:
-    def test_adam_and_scrub_on_identical_grads(self):
-        p, mu, nu, aux = random_state(50, 64, seed=1)
-        rng = np.random.RandomState(2)
-        grads = {k: rng.randn(*v.shape).astype(np.float32) * 1e-3
-                 for k, v in p.items()}
-        grads["xyz"][3, 1] = np.nan            # two poisoned rows
-        grads["opacity"][7, 0] = np.inf
-        grads["f_rest"][9] = 1e-30             # tiny of both signs
-        grads["f_rest"][9, ::2] *= -1
-        opt = OptimizationConfig()
-        jp, jadam, jaux = jax_state(p, mu, nu, aux, count=9)
-        tp, tadam, taux = torch_state(p, mu, nu, aux, count=9)
-        jg, jbad = jax.jit(joptim.scrub_grads)(jgauss.GaussianParams(
-            **{k: jnp.asarray(v) for k, v in grads.items()}))
-        tg, tbad = toptim.scrub_grads(tgauss.params_from_numpy(grads, "cpu"))
-        assert int(jbad) == int(tbad) == 2
-        for k in FIELDS:
-            np.testing.assert_array_equal(getattr(tg, k).numpy(),
-                                          np.asarray(getattr(jg, k)))
-        jnew, jst = jax.jit(joptim.adam_update)(
-            jg, jadam, jp, joptim.group_lrs(opt, 10, 4.2, jp),
-            alive=jaux.alive)
-        tnew, tst = toptim.adam_update(
-            tg, tadam, tp, toptim.group_lrs(opt, 10, 4.2, tp),
-            alive=taux.alive)
-        assert int(tst.count) == int(jst.count) == 10
-        # identical inputs, the same f32 expressions: within 1 ulp-scale
-        for k in FIELDS:
-            for got, want in ((getattr(tnew, k), getattr(jnew, k)),
-                              (getattr(tst.mu, k), getattr(jst.mu, k)),
-                              (getattr(tst.nu, k), getattr(jst.nu, k))):
-                np.testing.assert_allclose(got.numpy(), np.asarray(want),
-                                           rtol=1e-6, atol=1e-9)
-        dead = ~aux["alive"]
-        np.testing.assert_array_equal(tnew.xyz.numpy()[dead], p["xyz"][dead])
-
-
-class TestModelState:
-    def test_init_from_pcd_and_knn(self):
-        rng = np.random.RandomState(3)
-        pts = rng.randn(100, 3).astype(np.float32)
-        cols = rng.rand(100, 3).astype(np.float32)
-        jp, jaux = jax.jit(functools.partial(jgauss.init_from_pcd,
-                                             capacity=128))(pts, cols)
-        tp, taux = tgauss.init_from_pcd(pts, cols, 128, sh_degree=3,
-                                        device="cpu")
-        # knn: the same expanded-form distances, f32 (1e-5 relative)
-        for k in FIELDS:
-            np.testing.assert_allclose(getattr(tp, k).numpy(),
-                                       np.asarray(getattr(jp, k)),
-                                       rtol=1e-5, atol=1e-6, err_msg=k)
-        np.testing.assert_array_equal(taux.alive.numpy(),
-                                      np.asarray(jaux.alive))
-        assert int(tgauss.num_alive(taux)) == 100
-
-    def test_pad_and_compact_state(self):
-        p, mu, nu, aux = random_state(40, 64, seed=4)
-        jp, jadam, jaux = jax_state(p, mu, nu, aux)
-        tp, tadam, taux = torch_state(p, mu, nu, aux)
-        jp2, jaux2 = jgauss.pad_capacity(jp, jaux, 128)
-        tp2, taux2 = tgauss.pad_capacity(tp, taux, 128)
-        for k in FIELDS:
-            np.testing.assert_array_equal(getattr(tp2, k).numpy(),
-                                          np.asarray(getattr(jp2, k)))
-        pad = {k: np.concatenate([v, np.zeros_like(v)]) for k, v in
-               list(mu.items())}
-        _, jadam2, _ = jax_state(p, pad, pad, aux)
-        _, tadam2, _ = torch_state(p, pad, pad, aux)
-        want = jax.jit(jgauss.compact_state)(jp2, jadam2.mu, jadam2.nu, jaux2)
-        got = tgauss.compact_state(tp2, tadam2.mu, tadam2.nu, taux2)
-        for w, g in zip(want, got):
-            for k, v in to_np(w).items():
-                np.testing.assert_array_equal(getattr(g, k).numpy(), v,
-                                              err_msg=k)
-        assert got[3].alive[:40].all() and not got[3].alive[40:].any()
-        exported = tgauss.compact(tp, taux)
-        np.testing.assert_array_equal(exported["xyz"],
-                                      p["xyz"][aux["alive"]])
-
-
-class TestDensify:
-    def test_densify_and_prune_matches_jax(self):
-        # too few free slots for every split: some parents are left as
-        # they are, and the shortfall is counted
-        capacity = 80
-        p, mu, nu, aux = random_state(60, capacity, seed=5)
-        # a mix of small (clone) and large (split) hot Gaussians
-        p["scaling"][::3] = np.log(0.5)
-        key = jax.random.PRNGKey(6)
-        k1, k2 = jax.random.split(key)
-        noise = (np.asarray(jax.random.normal(k1, (capacity, 3))),
-                 np.asarray(jax.random.normal(k2, (capacity, 3))))
-        cfg_kw = dict(grad_threshold=2e-4, min_opacity=0.005,
-                      percent_dense=0.01)
-        jp, jadam, jaux = jax_state(p, mu, nu, aux)
-        jout = jax.jit(jdensify.densify_and_prune, static_argnums=(6,))(
-            jp, jadam.mu, jadam.nu, jaux, key, 10.0,
-            jdensify.DensifyConfig(**cfg_kw), True)
-        tp, tadam, taux = torch_state(p, mu, nu, aux)
-        tout = tdensify.densify_and_prune(
-            tp, tadam.mu, tadam.nu, taux, None, 10.0,
-            tdensify.DensifyConfig(**cfg_kw), True, noise=noise)
-        jinfo, tinfo = jout[4], tout[4]
-        assert {k: int(v) for k, v in jinfo.items()} == tinfo
-        assert tinfo["n_cloned"] > 0 and tinfo["n_split"] > 0
-        assert tinfo["n_pruned"] > 0 and tinfo["n_dropped"] > 0
-        # the split offsets go through a 3x3 rotation (1e-6 abs)
-        for w, g in zip(jout[:4], tout[:4]):
-            for k, v in to_np(w).items():
-                np.testing.assert_allclose(getattr(g, k).numpy(), v,
-                                           rtol=1e-6, atol=1e-6, err_msg=k)
-
-    def test_reset_opacity_and_stats(self):
-        p, mu, nu, aux = random_state(30, 48, seed=7)
-        jp, jadam, jaux = jax_state(p, mu, nu, aux)
-        tp, tadam, taux = torch_state(p, mu, nu, aux)
-        jr = jdensify.reset_opacity(jp, jadam.mu, jadam.nu)
-        tr = tdensify.reset_opacity(tp, tadam.mu, tadam.nu)
-        np.testing.assert_allclose(tr[0].opacity.numpy(),
-                                   np.asarray(jr[0].opacity), rtol=1e-6)
-        assert not tr[1].opacity.any() and not tr[2].opacity.any()
-        rng = np.random.RandomState(8)
-        radii = rng.randint(0, 20, 48).astype(np.int32)
-        g = rng.randn(48, 2).astype(np.float32)
-        vis = radii > 0
-        ja = jdensify.add_densification_stats(jaux, jnp.asarray(radii),
-                                              jnp.asarray(g),
-                                              jnp.asarray(vis))
-        ta = tdensify.add_densification_stats(taux, torch.tensor(radii),
-                                              torch.tensor(g),
-                                              torch.tensor(vis))
-        for k, v in to_np(ja).items():
-            np.testing.assert_allclose(getattr(ta, k).numpy(), v, rtol=1e-6)
-        np.testing.assert_allclose(
-            tdensify.densification_grads(ta).numpy(),
-            np.asarray(jdensify.densification_grads(ja)), rtol=1e-6)
-
-    def test_grow_mode_refused(self):
-        """The grow round, once refused, now runs: every hot Gaussian is
-        grown into a free slot and its direction logits are reset to
-        uniform (tests/test_torch_grow.py holds it against the JAX
-        package)."""
-        from mvs_gaussian_splatting_tpu_torch.models.grow import GrowConfig
-        from mvs_gaussian_splatting_tpu_torch.utils.sphere import \
-            sphere_points
-        p, mu, nu, aux = random_state(30, 96, seed=13)
-        rng = np.random.RandomState(14)
-        for tree in (p, mu, nu):
-            tree["dirs_prob"] = rng.randn(96, 128).astype(np.float32)
-        tp, tadam, taux = torch_state(p, mu, nu, aux)
-        hot = taux.alive & (tdensify.densification_grads(taux) >= 2e-4)
-        out = tdensify.densify_and_prune_grow(
-            tp, tadam.mu, tadam.nu, taux, torch.Generator().manual_seed(0),
-            10.0, tdensify.DensifyConfig(), GrowConfig(grow_dir=True),
-            torch.tensor(sphere_points(128), dtype=torch.float32), True)
-        info = out[4]
-        assert info["n_cloned"] == int(hot.sum()) > 0
-        assert (out[0].dirs_prob[hot] == 1.0 / 128).all()
-        assert bool(torch.isfinite(out[0].xyz).all())
-
-
 W, H = 64, 48
 
 
@@ -336,100 +161,6 @@ def scene_state(n, capacity, seed):
     p["opacity"] = rng.uniform(-2, 3, (capacity, 1)).astype(np.float32)
     aux["alive"] = np.arange(capacity) < n      # a prefix, as compacted
     return p, mu, nu, aux
-
-
-class TestTrainStep:
-    def test_one_step_matches_jax(self, jax_stream_interpret):
-        p, mu, nu, aux = scene_state(180, 256, seed=9)
-        jcam, tcam = _camera()
-        gt = np.random.RandomState(10).rand(3, H, W).astype(np.float32)
-        bg = np.array([0.2, 0.3, 0.1], np.float32)
-        opt = OptimizationConfig(opacitysparse=0.1)
-        kw = dict(tile_w=32, tile_h=16, max_tiles_per_gaussian=64,
-                  tier_budgets=(4, 12), tier_fracs=(0.25, 0.1))
-        jstep = jmake_train_step(opt, jrast.RasterConfig(backend="stream",
-                                                         **kw), 4.2)
-        jp, jadam, jaux = jax_state(p, mu, nu, aux, count=20)
-        jnew, jst, jaux2, jm = jstep(jp, jadam, jaux, jcam, jnp.asarray(gt),
-                                     jnp.asarray(bg), jnp.int32(21),
-                                     jnp.asarray(True), width=W, height=H,
-                                     sh_degree=3, render_n=192)
-        tstep = make_train_step(opt, RasterConfig(**kw), 4.2)
-        tp, tadam, taux = torch_state(p, mu, nu, aux, count=20)
-        tnew, tst, taux2, tm = tstep(tp, tadam, taux, tcam, torch.tensor(gt),
-                                     torch.tensor(bg), 21, True, width=W,
-                                     height=H, sh_degree=3, render_n=192)
-        # loss: the same image within 2e-4 per pixel, averaged (1e-5 abs)
-        assert abs(float(tm.loss) - float(jm.loss)) <= 1e-5
-        for k in ("n_visible", "overflow_tiles", "overflow_capacity",
-                  "instance_load", "nonfinite_grad_rows"):
-            assert int(getattr(tm, k)) == int(getattr(jm, k)), k
-        # the gradients, read from the first moments' change:
-        # mu_new − 0.9·mu = 0.1·g, within 3.5e-6 of each leaf's scale
-        # (measured 1.3-2.8e-6), and each package within 3e-6 of the
-        # float64 evaluation of the same step (measured: JAX 1.2-2.3e-6,
-        # the port 0.47-2.3e-6; ROADMAP C11, C13)
-        l64 = leaves64(p, 192)
-        img64, _ = render64(l64, taux.alive[:192], tcam, bg)
-        loss64(img64, torch.tensor(gt).double(), opt, l64["opacity"],
-               taux.alive[:192]).backward()
-        gaps = {}
-        for k in FIELDS:
-            gj = np.asarray(getattr(jst.mu, k)) - 0.9 * mu[k]
-            gt_ = getattr(tst.mu, k).numpy() - 0.9 * mu[k]
-            g64 = 0.1 * l64[k].grad.numpy()[:180]
-            gaps[k] = (rel_gap(gt_[:180], gj[:180]), rel_gap(gj[:180], g64),
-                       rel_gap(gt_[:180], g64))
-        print("one step, port-JAX / JAX-f64 / port-f64: " + ", ".join(
-            f"{k} " + " / ".join(f"{g:.2e}" for g in v)
-            for k, v in gaps.items()))
-        for k in FIELDS:
-            assert gaps[k][0] <= 3.5e-6, k
-            assert max(gaps[k][1:]) <= 3e-6, k
-            # ROADMAP C13: the port no farther from float64 than
-            # max(1.25 × the JAX package's gap, 5e-7)
-            assert gaps[k][2] <= max(1.25 * gaps[k][1], 5e-7), k
-            np.testing.assert_allclose(getattr(tst.nu, k).numpy(),
-                                       np.asarray(getattr(jst.nu, k)),
-                                       rtol=1e-4, atol=1e-12, err_msg=k)
-            # parameters after Adam: steps of ~lr, their differences come
-            # from the gradient gap through nonzero prior moments (1e-5 of
-            # the largest step)
-            step_j = np.asarray(getattr(jnew, k)) - p[k]
-            step_t = getattr(tnew, k).numpy() - p[k]
-            assert rel_gap(step_t, step_j) <= 1e-5, k
-        for k, v in to_np(jaux2).items():
-            np.testing.assert_allclose(getattr(taux2, k).numpy(), v,
-                                       rtol=2e-5, atol=1e-9, err_msg=k)
-        assert float(taux2.denom.sum()) > 0
-
-
-class TestCheckpoint:
-    def test_checkpoints_load_both_ways(self, tmp_path):
-        p, mu, nu, aux = scene_state(150, 192, seed=11)
-        _, tcam = _camera()
-        tp, tadam, taux = torch_state(p, mu, nu, aux, count=33)
-        jp, jadam, jaux = jax_state(p, mu, nu, aux, count=33)
-        tckpt.save_checkpoint(str(tmp_path / "t.npz"), tp, tadam, taux, 33, 2)
-        jckpt.save_checkpoint(str(tmp_path / "j.npz"), jp, jadam, jaux, 33, 2)
-        from_t = jckpt.load_checkpoint(str(tmp_path / "t.npz"))
-        from_j = tckpt.load_checkpoint(str(tmp_path / "j.npz"), "cpu")
-        assert from_t[3:] == (33, 2) and from_j[3:] == (33, 2)
-        assert int(from_t[1].count) == int(from_j[1].count) == 33
-        for (jtree, ttree) in ((from_t[0], from_j[0]),
-                               (from_t[1].mu, from_j[1].mu),
-                               (from_t[1].nu, from_j[1].nu),
-                               (from_t[2], from_j[2])):
-            for k, v in to_np(jtree).items():
-                np.testing.assert_array_equal(getattr(ttree, k).numpy(), v)
-        # the JAX package's checkpoint, loaded by the port, renders the
-        # image the source state renders
-        with torch.no_grad():
-            want = render(tcam, W, H, tp, torch.zeros(3), sh_degree=2,
-                          alive=taux.alive)["render"]
-            got = render(tcam, W, H, from_j[0], torch.zeros(3), sh_degree=2,
-                         alive=from_j[2].alive)["render"]
-        torch.testing.assert_close(got, want, rtol=0, atol=0)
 
 
 def _pose(angle, radius=4.0):
@@ -471,64 +202,3 @@ def write_synthetic_scene(tmp_path, n=120) -> str:
     write_pinhole_scene(str(tmp_path / "scene"), cams, imgs, init,
                         np.full((n, 3), 128, np.uint8))
     return str(tmp_path / "scene")
-
-
-def test_cli_train_synthetic(tmp_path):
-    """A hundred-odd Gaussians, 64×48, 20 steps on the CPU through
-    ``cli/train.py``: the loss falls, densification runs, parameters stay
-    finite, and the model directory holds its artifacts."""
-    from mvs_gaussian_splatting_tpu_torch.cli.train import main
-
-    n = 120
-    scene = write_synthetic_scene(tmp_path, n)
-    model = tmp_path / "model"
-    params, aux, _, hist = main([
-        "-s", scene, "-m", str(model), "--eval",
-        "--no-fast_math", "--device", "cpu", "--iterations", "20",
-        "--densify_from_iter", "5", "--densification_interval", "10",
-        "--test_iterations", "20", "--save_iterations", "20",
-        "--checkpoint_iterations", "20", "--log_every", "5",
-        "--tile_w", "32", "--tile_h", "16"])
-    losses = [v for _, v in hist["loss"]]
-    assert losses[-1] < losses[0]
-    assert hist["densify"] and any(d["n_split"] + d["n_cloned"]
-                                   for d in hist["densify"])
-    assert int(aux.alive.sum()) != n
-    assert all(bool(torch.isfinite(a).all()) for a in params
-               if a is not None)
-    assert sum(v for _, v in hist["nonfinite_grad_rows"]) == 0
-    for name in ("cameras.json", "cfg_args.json", "input.ply",
-                 "history.json", "chkpnt20.npz",
-                 "point_cloud/iteration_20/point_cloud.ply"):
-        assert os.path.exists(model / name), name
-    assert "20" in json.loads((model / "history.json").read_text())[
-        "psnr_test"]
-
-
-def test_fast_math_refused(tmp_path):
-    """The configuration's default ``fast_math=True``, once refused, now
-    trains: ``cli/train.py`` with no ``--no-fast_math`` composites through
-    the fast-math mode (its plain versions on the CPU) and writes its
-    checkpoint, which the port loads back."""
-    from mvs_gaussian_splatting_tpu_torch.cli.train import main
-    from mvs_gaussian_splatting_tpu_torch.ops import stream
-
-    scene = write_synthetic_scene(tmp_path)
-    model = tmp_path / "m"
-    calls = []
-    real = stream.composite_stream_bwd_fast_plain
-    stream.composite_stream_bwd_fast_plain = (
-        lambda *a, **k: calls.append(1) or real(*a, **k))
-    try:
-        params, _, _, hist = main([
-            "-s", scene, "-m", str(model), "--device", "cpu",
-            "--iterations", "6", "--checkpoint_iterations", "6",
-            "--log_every", "2", "--tile_w", "32", "--tile_h", "16"])
-    finally:
-        stream.composite_stream_bwd_fast_plain = real
-    assert len(calls) == 6                     # one fast backward per step
-    losses = [v for _, v in hist["loss"]]
-    assert len(losses) == 3 and all(np.isfinite(losses))
-    loaded = tckpt.load_checkpoint(str(model / "chkpnt6.npz"), "cpu")
-    assert loaded[3] == 6
-    torch.testing.assert_close(loaded[0].xyz, params.xyz, rtol=0, atol=0)

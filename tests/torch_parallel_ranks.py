@@ -315,6 +315,9 @@ def _data_parallel_cases(mesh, out, n):
         step, torch_state(*dp_state(), count=20), [cams[1]] * DP_B,
         gts[1:2].expand(DP_B, -1, -1, -1).contiguous(), torch.zeros(3),
         **kw)[0]
+
+
+def _spec_batch_cases(mesh, out, n):
     _, batched = spec_steps(mesh)
     gcams = [torch_camera(orbit_camera_np(DP_W, DP_H, 0.3 + 0.2 * i))
              for i in range(4)]
@@ -404,14 +407,23 @@ def _gauss_stream_cases(mesh, out, n):
         # each rank's backward fills its own rows: their sum is the whole
         out[("grads_" + key, n)] = [
             pmesh.all_reduce(a.grad, mesh, "gauss").numpy() for a in leaves]
-    if n == 4:
-        fn = make_gauss_sharded_stream(mesh, "gauss", GS_W, GS_H, GS_CFG,
-                                       quota=128)
-        leaves = leaves_of(shard(splats_np(1600, 3)), False)
-        img, aux = fn(torch_processed(leaves, cam, GS_W, GS_H),
-                      torch.zeros(3))
-        out[("quota", n)] = (bool(torch.isfinite(img).all()),
-                             int(aux["overflow_quota"]))
+
+
+def _gauss_quota_cases(mesh, out, n):
+    from mvs_gaussian_splatting_tpu_torch.parallel.gauss_stream import \
+        make_gauss_sharded_stream
+    if n != 4:
+        return
+    cam = torch_camera(camera_np(GS_W, GS_H))
+    i = mesh.coords["gauss"]
+    fn = make_gauss_sharded_stream(mesh, "gauss", GS_W, GS_H, GS_CFG,
+                                   quota=128)
+    arrays = splats_np(1600, 3)
+    m = arrays[0].shape[0] // n
+    leaves = leaves_of([a[i * m:(i + 1) * m] for a in arrays], False)
+    img, aux = fn(torch_processed(leaves, cam, GS_W, GS_H), torch.zeros(3))
+    out[("quota", n)] = (bool(torch.isfinite(img).all()),
+                         int(aux["overflow_quota"]))
 
 
 # ---- gauss_train ------------------------------------------------------------
@@ -449,6 +461,24 @@ def _yield_cpu() -> None:
     import os
     torch.set_num_threads(1)
     os.nice(10)
+
+
+def niced(fn, *args, **kwargs):
+    """A future of ``fn(*args, **kwargs)`` run in a thread at a lower
+    priority (on Linux a thread's nice value is its own, and the processes
+    it starts inherit it): the ranks a tool spawns then run beside the
+    other test workers without slowing them, as :func:`_yield_cpu`'s do."""
+    import os
+    from concurrent.futures import ThreadPoolExecutor
+
+    def call():
+        os.nice(10)
+        return fn(*args, **kwargs)
+
+    pool = ThreadPoolExecutor(1)
+    future = pool.submit(call)
+    pool.shutdown(wait=False)
+    return future
 
 
 def _env_rank(r: int, world: int, port: int, queue) -> None:
@@ -597,6 +627,11 @@ def _loop_cases(mesh, out, n):
         out[("tile", n)] = train_loop(scene, tile_parallel=4)
         out[("grid", n)] = train_loop(scene, data_parallel=2, tile_parallel=2)
         out[("gauss", n)] = train_loop(scene, gauss_parallel=4)
+
+
+def _loop_diverged_cases(mesh, out, n):
+    if n != 4:
+        return
     # a rank that drew other numbers is caught
     from mvs_gaussian_splatting_tpu_torch.train.loop import \
         check_ranks_agree
@@ -614,10 +649,13 @@ CASES = {"tile_stream": (_tile_stream_cases, ("tile",)),
          "tile_train": (_tile_train_cases, ("tile",)),
          "tile_parallel": (_tile_parallel_cases, ("tile",)),
          "data_parallel": (_data_parallel_cases, ("data",)),
+         "spec_batch": (_spec_batch_cases, ("data",)),
          "grid": (_grid_cases, ("data", "tile")),
          "gauss_stream": (_gauss_stream_cases, ("gauss",)),
+         "gauss_quota": (_gauss_quota_cases, ("gauss",)),
          "gauss_train": (_gauss_train_cases, ("gauss",)),
-         "loop": (_loop_cases, ("data",))}
+         "loop": (_loop_cases, ("data",)),
+         "loop_diverged": (_loop_diverged_cases, ("data",))}
 
 
 def rank_main(rank: int, world: int, file_key: str):
