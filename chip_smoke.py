@@ -271,12 +271,24 @@ reader). Phases, one JSON line each:
    version on the same projected Gaussians (2e-4) and
    ``dryrun_multichip(1)``; every gradient finite, every overflow
    counted, a capacity overflow a fault;
+21. experiments, the micro-experiments (``tools/exp_binning.py``,
+   ``tools/exp_scatter.py``, ``tools/exp_perf.py``) through their ``run``
+   at 1080p (1920×1088, 200,000 Gaussians) and bicycle (1237×822,
+   500,000), one JSON line each: binning's stages A-F and their sum beside
+   the whole call, every variant composed into a whole binning and held
+   integer-equal to ``bin_instances_stream``; the row scatter's variants
+   and its sweeps across 125,000-4,000,000 target rows and widths 8-16,
+   each within 1e-6 of scale of its float64 sum (the cumsum-difference
+   forms within ``exp_scatter.CUMSUM_REL``); the primitive rates beside
+   their byte bounds, the four tier settings, B3f, B3f+B3b, B1 and B1+B2
+   on each workload's stream, and the unsort candidates; every check a
+   fault when false, and each of those four kernels launched;
 
 then the ``kernels`` line (B1, B2, B3f, B3b, B4 and B5, with their launches
 on the main paths: the render slice of phase 4, the two arms of phase 7
 (not its control), phase 8, phase 9, phase 9b, phase 11's renders and
 training, phase 12's dataset, phase 13's three arms, phase 14's render CLI
-and full_eval, phase 15's render, phase 17 and phases 18, 19 and 20, each
+and full_eval, phase 15's render, phase 17 and phases 18, 19, 20 and 21, each
 counted from zero)
 and last ``{"ok": true, "device": {...}}``. A failed check raises after the
 measurements and exits non-zero without printing those two lines; without a
@@ -446,6 +458,11 @@ VIEWER_TRAIN_SIZE = (640, 426)  # the frames asked for while training
 TOOLS_BENCH_ITERS = 50            # the host-bound step varies between calls
 TOOLS_TRAIN_ITERS = 200
 TOOLS_PIPELINE_ITERS = 150
+# phase 21: the experiments (tools/exp_*.py) at the JAX scripts' widths;
+# the stream kernels its kernels section must launch
+EXP_WORKLOADS = ("1080p", "bicycle")
+EXP_KERNELS = ("stream_fwd", "stream_bwd", "stream_fwd_fast",
+               "stream_bwd_fast")
 TRAIN_FLAGS = ["--eval", "--resolution", "1",
                "--tile_w", "32", "--tile_h", "16",
                "--max_tiles_per_gaussian", "512",
@@ -3304,6 +3321,42 @@ def tools_bench_phase(tmp, faults):
     return launches
 
 
+def experiments_phase(faults):
+    """Phase 21: the experiments (``tools/exp_binning.py``,
+    ``tools/exp_scatter.py``, ``tools/exp_perf.py``) through their
+    ``run`` at 1080p (200,000 Gaussians) and bicycle (500,000), one JSON
+    line each; every check they hold (each binning variant integer-equal
+    to ``bin_instances_stream``, each scatter within its tolerance of the
+    float64 sum, ...) is a fault here when false, and so is a stream kernel
+    that the kernels section did not launch. Returns the launches."""
+    import torch
+
+    from mvs_gaussian_splatting_tpu_torch.tools import (
+        exp_binning, exp_perf, exp_scatter)
+    t_phase = time.time()
+    launches = {k: 0 for k in KERNELS}
+    for mod in (exp_binning, exp_scatter, exp_perf):
+        for wl in EXP_WORKLOADS:
+            reset_launches()
+            t0 = time.time()
+            res = mod.run(wl, device="cuda")
+            torch.cuda.synchronize()
+            got = read_launches()
+            add_launches(launches, got)
+            name = res["experiment"]
+            emit({"phase": f"experiments_{name}_{wl}", "result": res,
+                  "launches": got, "seconds": round(time.time() - t0, 1)})
+            failed = [k for k, ok in res["checks"].items() if not ok]
+            if failed:
+                faults.append(f"experiments {name} {wl}: {failed}")
+    missing = [k for k in EXP_KERNELS if not launches[k]]
+    if missing:
+        faults.append(f"experiments: {missing} never launched")
+    emit({"phase": "experiments", "launches": launches,
+          "seconds": round(time.time() - t_phase, 1)})
+    return launches
+
+
 def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--seed", type=int, default=0,
@@ -3630,6 +3683,7 @@ def main(argv=None):
         viewer = viewer_phase(tmp, data, params, test_cams, args.seed,
                               faults)
         tools = tools_bench_phase(tmp, faults)
+        experiments = experiments_phase(faults)
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
     # 10. sections: the split, the SASS loop and the issue-rate floor
@@ -3692,7 +3746,7 @@ def main(argv=None):
              **{f"grow_resume_{k}": v for k, v in grow.items()},
              **chain, "compress_render": compressed["launches"],
              "parallel_modes": parallel, "mvs": mvs, "viewer": viewer,
-             "tools": tools}
+             "tools": tools, "experiments": experiments}
     totals = {k: sum(p[k] for p in paths.values()) for k in KERNELS}
     emit({"phase": "main_path_launches", "paths": paths, "totals": totals,
           "seconds_total": round(time.time() - t_start, 1)})

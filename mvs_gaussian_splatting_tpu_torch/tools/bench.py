@@ -86,14 +86,20 @@ def raster_config(fast: bool) -> RasterConfig:
                         backend="stream", fast_math=fast)
 
 
+def project(arrays, cam, width: int, height: int, cfg: RasterConfig):
+    """The scene's raw arrays preprocessed at ``cfg``'s tile shape."""
+    means, log_scales, quats, opac_logit, shs = arrays
+    return preprocess(means, torch.sigmoid(opac_logit), cam, width, height,
+                      scales=torch.exp(log_scales),
+                      rotations=normalize(quats), shs=shs, sh_degree=3,
+                      tile_w=cfg.tile_w, tile_h=cfg.tile_h)
+
+
 def render_image(arrays, cam, width: int, height: int, cfg: RasterConfig,
                  bg):
     """(image [3, H, W], aux) of the scene's raw arrays."""
-    means, log_scales, quats, opac_logit, shs = arrays
-    p = preprocess(means, torch.sigmoid(opac_logit), cam, width, height,
-                   scales=torch.exp(log_scales), rotations=normalize(quats),
-                   shs=shs, sh_degree=3, tile_w=cfg.tile_w, tile_h=cfg.tile_h)
-    return rasterize(p, width, height, bg, cfg)
+    return rasterize(project(arrays, cam, width, height, cfg), width, height,
+                     bg, cfg)
 
 
 def loss_and_grads(arrays, cam, width: int, height: int, cfg: RasterConfig,

@@ -1,6 +1,7 @@
 """Timing helpers of the tools: host time of a synchronised burst, device
 time by CUDA events, the device's busy share from ``torch.profiler``
-traces, and the card's name and power limit (``chip_smoke.py``,
+traces and each named stage's device time from one, and the card's name
+and power limit (``chip_smoke.py``,
 ``profile_kernels.py`` and ``ref_scale_validation.py`` read the last two
 here too).
 
@@ -11,6 +12,7 @@ share, power limit) are None there.
 
 from __future__ import annotations
 
+import bisect
 import json
 import os
 import subprocess
@@ -82,6 +84,117 @@ def busy(fn, steps: int, device: torch.device):
     window, total = busy_window(dev)
     return {"device_ms_per_step": total / steps / 1e3,
             "busy_share": total / max(window, 1e-9)}
+
+
+RANGE_PREFIX = "stage:"
+PROFILER_LEAD_FILLS = 256
+
+
+def stage_times(stages, iters: int, device: torch.device, warmup: int = 1):
+    """``{name: {"ms", "device_ms"}}`` of each zero-argument callable of the
+    dict ``stages``. ``ms`` is :func:`event_ms` over ``iters`` calls after
+    ``warmup``; ``device_ms`` the summed duration of the device events that
+    ``iters`` more calls launched, from one ``torch.profiler`` window over
+    every stage (:func:`range_device_ms`), a mean per call. Where the host
+    enqueues slower than the card runs, the event span holds the host's gaps
+    and the device time does not. ``device_ms`` is None on the CPU."""
+    out = {name: {"ms": event_ms(fn, iters, device, warmup)}
+           for name, fn in stages.items()}
+    dev = range_device_ms(stages, iters, device)
+    for name, rec in out.items():
+        rec["device_ms"] = None if dev is None else dev[name]
+    return out
+
+
+def range_device_ms(stages, iters: int, device: torch.device):
+    """``{name: device ms per call}``: every stage's ``iters`` calls inside
+    a ``record_function`` range of its own, all under one profiler window,
+    and each device event credited to the range whose host call launched it
+    (:func:`device_ms_by_range`). None on the CPU, and for a stage of which
+    some launch has no device record in the trace."""
+    if device.type != "cuda":
+        return None
+    from torch.profiler import ProfilerActivity, profile, record_function
+    sync(device)
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        # A window's first device records were seen to go missing from its
+        # trace (one of them in a fresh process, 37-51 in one that had
+        # profiled for minutes): a burst of fills outside every range takes
+        # their place.
+        for _ in range(PROFILER_LEAD_FILLS):
+            torch.zeros(1, device=device)
+        sync(device)
+        for name, fn in stages.items():
+            with record_function(RANGE_PREFIX + name):
+                for _ in range(iters):
+                    fn()
+            sync(device)
+    fd, path = tempfile.mkstemp(suffix=".json")
+    os.close(fd)
+    try:
+        prof.export_chrome_trace(path)
+        events, _ = trace_events(path)
+    finally:
+        os.remove(path)
+    totals = device_ms_by_range(events)
+    return {name: None if totals.get(name) is None else totals[name] / iters
+            for name in stages}
+
+
+def _launches(name: str) -> bool:
+    """Whether a CUDA API call of this name puts work on the device (a
+    kernel, a copy or a fill)."""
+    return any(k in name for k in ("Launch", "Memcpy", "Memset"))
+
+
+def device_ms_by_range(events):
+    """Device milliseconds a ``record_function`` range (named with
+    ``RANGE_PREFIX``) launched, from a chrome trace's events: a kernel,
+    copy or fill is matched by correlation id to the CUDA API call that
+    launched it, and credited to the range whose host span holds that
+    call. A range some of whose launches have no device record in the trace
+    is None."""
+    cut = len(RANGE_PREFIX)
+    ranges = sorted((e["ts"], e["ts"] + e["dur"], e["name"][cut:])
+                    for e in events if e.get("cat") == "user_annotation"
+                    and e.get("name", "").startswith(RANGE_PREFIX))
+    starts = [r[0] for r in ranges]
+
+    def range_of(ts):
+        k = bisect.bisect_right(starts, ts) - 1
+        return ranges[k][2] if k >= 0 and ts <= ranges[k][1] else None
+    launched = {}
+    for e in events:
+        if (e.get("cat") in ("cuda_runtime", "cuda_driver")
+                and "correlation" in e.get("args", {})
+                and _launches(e.get("name", ""))):
+            launched[e["args"]["correlation"]] = range_of(e["ts"])
+    totals = {r[2]: 0.0 for r in ranges}
+    recorded = set()
+    for e in events:
+        if e.get("cat") not in ("kernel", "gpu_memcpy", "gpu_memset"):
+            continue
+        corr = e.get("args", {}).get("correlation")
+        name = launched.get(corr)
+        if name is not None:
+            totals[name] += e["dur"] / 1e3
+            recorded.add(corr)
+    for corr, name in launched.items():
+        if name is not None and corr not in recorded:
+            totals[name] = None
+    return totals
+
+
+def checked_device(name: str) -> torch.device:
+    """``name`` as a torch device; a CUDA device on a machine without a
+    card exits non-zero, since a measurement never falls back to the
+    CPU."""
+    device = torch.device(name)
+    if device.type == "cuda" and not torch.cuda.is_available():
+        raise SystemExit(f"no CUDA card for --device {name}; "
+                         "pass --device cpu to run on the CPU")
+    return device
 
 
 def trace_events(path):
